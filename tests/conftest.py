@@ -8,3 +8,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 for p in (os.path.join(_REPO, "src"), _REPO):
     if p not in sys.path:
         sys.path.insert(0, p)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
