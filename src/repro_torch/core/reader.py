@@ -10,10 +10,10 @@ post-processing support):
   IterPattern values      -> resolved with a per-pattern-key run counter
                              (exact mirror of the runtime tracker)
 
-:meth:`TraceReader.iter_records` is the lossless row-wise path: it
-decodes each CST entry once (memoized) and resolves patterns per record.
-The compressed-domain query layer (``TraceView``) is not part of this
-package yet.
+The record-expansion methods here are thin compatibility shims over
+:class:`repro_torch.core.traceview.TraceView` (``self.view()``), which
+holds the batch-decoded columns and answers aggregate queries straight from
+the compressed representation -- prefer it for analysis work.
 
 **Streaming traces** (multi-segment directories written by
 ``Recorder.flush``) open through the same class: committed epoch segments
@@ -38,13 +38,11 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 from . import streaming, trace_format
-from .encoding import Handle, IterPattern, RankPattern, decode_signature
-from .patterns import IntraPatternDecoder
-from .sequitur import (concat_grammars, expand_grammar, parse_grammar,
-                       terminal_counts)
+from .encoding import IterPattern, RankPattern
+from .sequitur import concat_grammars, parse_grammar
 from .trace_format import TraceFormatError, read_trace_files
 
 
@@ -73,26 +71,6 @@ def _resolve_rank(v: Any, rank: int) -> Any:
     if isinstance(v, tuple):
         return tuple(_resolve_rank(x, rank) for x in v)
     return v
-
-
-def _derive_key(func_id: int, tidx: int, args: tuple, ret: Any,
-                roles: Sequence[str], ret_is_offset: bool) -> tuple:
-    """The pattern-run key of one call, built from its rank-resolved
-    values exactly as the runtime tracker builds it: non-offset args split
-    into handle ids and key parts."""
-    handle_ids: List[int] = []
-    keyparts: List[Any] = []
-    for j, a in enumerate(args):
-        role = roles[j] if j < len(roles) else "val"
-        if role == "offset":
-            continue
-        if isinstance(a, Handle):
-            handle_ids.append(a.id)
-        else:
-            keyparts.append(a)
-    key_ret = None if ret_is_offset else (
-        ("h", ret.id) if isinstance(ret, Handle) else ret)
-    return (func_id, tidx, tuple(handle_ids), tuple(keyparts), key_ret)
 
 
 _MODES = ("auto", "stitched", "tail", "merged")
@@ -128,6 +106,7 @@ class TraceReader:
             self._init_single(read_trace_files(trace_dir))
         self.functions = {int(k): v for k, v in self.meta["functions"].items()}
         self.nranks = self.meta["nranks"]
+        self._view = None
 
     def _init_single(self, data: Dict[str, Any]) -> None:
         self.meta = data["meta"]
@@ -137,7 +116,6 @@ class TraceReader:
             str(k): list(v)
             for k, v in (self.meta.get("degraded_epochs") or {}).items()}
         self.merged_cst: List[bytes] = data["merged_cst"]
-        self._sigs: Dict[int, tuple] = {}
         self.unique_cfgs = [parse_grammar(c) for c in data["unique_cfgs"]]
         self.cfg_index: List[int] = data["cfg_index"]
         self.ts_store = streaming.make_ts_store(data)
@@ -214,7 +192,6 @@ class TraceReader:
         st = streaming.stitch_segments(datas)
         self.meta = st["meta"]
         self.merged_cst = st["merged_cst"]
-        self._sigs = {}
         self._unique_bytes = st["unique_cfgs"]
         self.unique_cfgs = [parse_grammar(c) for c in st["unique_cfgs"]]
         self.cfg_index = st["cfg_index"]
@@ -261,16 +238,20 @@ class TraceReader:
 
         The incremental path (stitched serving) is O(delta): only the new
         segments are read and decoded, their CSTs appended, each rank's
-        CFG spliced via :func:`sequitur.concat_grammars`, so one new epoch
-        costs one segment fold, never a rescan of already-loaded
-        segments (decoded CST entries stay memoized: the CST only grows).
-        A tail
+        CFG spliced via :func:`sequitur.concat_grammars`, and -- when a
+        view had been built -- its per-unique-CFG memos folded forward
+        (:func:`traceview.refreshed_view`), so one new epoch costs one
+        segment fold, never a rescan of already-loaded segments.  A tail
         reader re-reads only the (one) newest intact segment when it
         changed; an auto reader that had been serving a merged trace
         superseded by new epochs falls back to a full stitched build once.
 
-        Not safe to call concurrently with attribute access on this
-        reader itself.
+        Previously handed-out :meth:`view` objects keep serving the
+        snapshot they were built from; :meth:`view` after a refresh serves
+        the updated trace.  Not safe to call concurrently with attribute
+        access on this reader itself -- callers that share a reader across
+        threads (the trace service cache) serialize refreshes and query
+        the snapshot views.
         """
         if self._serving == "single":
             return 0  # plain single-segment trace: immutable once written
@@ -295,7 +276,7 @@ class TraceReader:
             self._epoch_high = max(e["epoch"] for e in new_entries)
             self._reinit()
             return 0 if self._tail_name == old_name else 1
-        n_folded = 0
+        folds = []
         for entry in new_entries:
             self._epoch_high = entry["epoch"]
             data = self._read_segment(self.trace_dir, entry)
@@ -306,26 +287,31 @@ class TraceReader:
                     f"segment {entry['name']} covers "
                     f"{data['meta']['nranks']} ranks, this reader serves "
                     f"{self.nranks}")
-            self._fold_segment(entry, data)
-            n_folded += 1
-        if n_folded:
-            self.functions = {int(k): v
-                             for k, v in self.meta["functions"].items()}
-        return n_folded
+            folds.append(self._fold_segment(entry, data))
+        if not folds:
+            return 0
+        self.functions = {int(k): v
+                         for k, v in self.meta["functions"].items()}
+        if self._view is not None:
+            from .traceview import refreshed_view
+            self._view = refreshed_view(self._view, self, folds)
+        return len(folds)
 
     def _fold_segment(self, entry: Dict[str, Any],
-                      data: Dict[str, Any]) -> None:
+                      data: Dict[str, Any]) -> tuple:
         """Splice ONE newly committed segment onto the stitched state.
 
-        Every container is REPLACED, never mutated in place, so record
-        iterators started before the fold keep consistent references to
-        the old state.
+        Every container is REPLACED, never mutated in place, so views
+        built before the fold keep consistent references to the old state.
+        Returns the ``(data, toff, pairs, seg_store)`` fold record
+        :func:`traceview.refreshed_view` consumes.
         """
         toff = len(self.merged_cst)
         seg_store = streaming.make_ts_store(data)
         pair_table: Dict[tuple, int] = {}
         new_bytes: List[bytes] = []
         new_parsed = []
+        pairs: List[tuple] = []
         new_index: List[int] = []
         for r in range(self.nranks):
             key = (self.cfg_index[r], data["cfg_index"][r])
@@ -338,6 +324,7 @@ class TraceReader:
                      (data["unique_cfgs"][key[1]], toff)])
                 new_bytes.append(cat)
                 new_parsed.append(parse_grammar(cat))
+                pairs.append(key)
             new_index.append(i)
         self.merged_cst = self.merged_cst + list(data["merged_cst"])
         self._unique_bytes = new_bytes
@@ -353,6 +340,7 @@ class TraceReader:
             self.degraded_epochs = {**self.degraded_epochs,
                                     entry["name"]:
                                         list(entry["ranks_present"])}
+        return (data, toff, pairs, seg_store)
 
     def _reinit(self) -> None:
         """Full re-open in place (tail advance, merged -> stitched
@@ -366,61 +354,26 @@ class TraceReader:
         self.functions = {int(k): v
                          for k, v in self.meta["functions"].items()}
         self.nranks = self.meta["nranks"]
+        self._view = None
 
-    def _signature(self, terminal: int) -> tuple:
-        """Decoded ``(func_id, thread, depth, args, ret)`` of one CST entry,
+    def view(self) -> "TraceView":  # noqa: F821  (lazy import below)
+        """The compressed-domain columnar query API over this trace
+        (:class:`repro_torch.core.traceview.TraceView`), built once,
         memoized."""
-        sig = self._sigs.get(terminal)
-        if sig is None:
-            sig = decode_signature(self.merged_cst[terminal])
-            self._sigs[terminal] = sig
-        return sig
+        if self._view is None:
+            from .traceview import TraceView
+            self._view = TraceView(self)
+        return self._view
 
     def n_records(self, rank: int) -> int:
-        """O(|grammar|) record count from rule expansion weights."""
-        grammar = self.unique_cfgs[self.cfg_index[rank]]
-        return sum(terminal_counts(grammar).values())
+        """O(|grammar|) record count from rule expansion weights -- the
+        seed expand-and-count loop is gone."""
+        return self.view().n_records(rank)
 
     def iter_records(self, rank: int, timestamps: bool = True
                      ) -> Iterator[Record]:
-        """Expand one rank's full record stream (lossless reconstruction):
-        rank patterns are resolved with ``rank``, iteration patterns with
-        a per-run-key decoder that mirrors the runtime tracker."""
-        grammar = self.unique_cfgs[self.cfg_index[rank]]
-        decoder = IntraPatternDecoder()
-        ts = self.ts_store.load(rank) if timestamps else None
-        for i, terminal in enumerate(expand_grammar(grammar)):
-            func_id, tidx, depth, args, ret = self._signature(terminal)
-            finfo = self.functions[func_id]
-            roles = finfo["arg_roles"]
-            args = tuple(_resolve_rank(a, rank) for a in args)
-            ret = _resolve_rank(ret, rank)
-            off_slots = [j for j, r in enumerate(roles)
-                         if r == "offset" and j < len(args)]
-            ret_is_offset = (finfo["ret_role"] == "offset"
-                             and isinstance(ret, (int, IterPattern)))
-            if off_slots or ret_is_offset:
-                key = _derive_key(func_id, tidx, args, ret, roles,
-                                  ret_is_offset)
-                enc = [args[j] for j in off_slots]
-                if ret_is_offset:
-                    enc.append(ret)
-                dec = decoder.decode(key, enc)
-                args = list(args)
-                for j, v in zip(off_slots, dec):
-                    args[j] = v
-                args = tuple(args)
-                if ret_is_offset:
-                    ret = dec[-1]
-            yield Record(func=finfo["name"], layer=finfo["layer"], args=args,
-                         arg_names=tuple(finfo["arg_names"]), ret=ret,
-                         thread=tidx, depth=depth,
-                         t_entry=int(ts[i, 0]) if ts is not None else None,
-                         t_exit=int(ts[i, 1]) if ts is not None else None,
-                         roles=tuple(roles))
+        return self.view().iter_records(rank, timestamps=timestamps)
 
     def all_records(self, timestamps: bool = True
                     ) -> Iterator[Tuple[int, Record]]:
-        for r in range(self.nranks):
-            for rec in self.iter_records(r, timestamps=timestamps):
-                yield r, rec
+        return self.view().all_records(timestamps=timestamps)

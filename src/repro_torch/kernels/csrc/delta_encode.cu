@@ -1,12 +1,14 @@
 // Hopper kernels of the timestamp and varint encode paths, with a plain C
 // interface for ctypes (built by kernels/_build.py).
 //
-//   delta_zigzag      replaces delta_zigzag_pallas
-//                     (src/repro/kernels/delta_encode/delta_encode.py:40)
-//   uvarint_encode64  replaces uvarint_encode64_pallas (same file, :155)
-//   fit_columns       replaces fit_columns_pallas (same file, :202)
+//   delta_zigzag         replaces delta_zigzag_pallas
+//                        (src/repro/kernels/delta_encode/delta_encode.py:40)
+//   delta_zigzag_varint  replaces delta_zigzag_varint_pallas (same file,
+//                        :100)
+//   uvarint_encode64     replaces uvarint_encode64_pallas (same file, :155)
+//   fit_columns          replaces fit_columns_pallas (same file, :202)
 //
-// All three are bound by memory traffic: each reads its input once and
+// All four are bound by memory traffic: each reads its input once and
 // writes its output once, with a handful of integer operations per byte.
 // At the tracer's sizes (tens of thousands of elements per call) the time
 // is launch latency and the host<->device copies, not HBM bandwidth.
@@ -39,6 +41,33 @@ __global__ void delta_zigzag_kernel(const uint32_t* __restrict__ x,
   uint32_t prev = i ? x[i - 1] : 0u;
   uint32_t d = x[i] - prev;
   out[i] = (d << 1) ^ (0u - (d >> 31));
+}
+
+// The fused tick encode: delta_zigzag above, then the 5-plane varint split
+// of a u32 (a u32 varint is at most 5 bytes) in the same pass, so the
+// zigzag values never make a round trip through device memory before
+// they are split.  The host scatters the planes into the byte stream.
+__global__ void delta_zigzag_varint_kernel(const uint32_t* __restrict__ x,
+                                           uint32_t* __restrict__ zz,
+                                           int32_t* __restrict__ lens,
+                                           uint8_t* __restrict__ planes,
+                                           int64_t n) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t prev = i ? x[i - 1] : 0u;
+  uint32_t d = x[i] - prev;
+  uint32_t z = (d << 1) ^ (0u - (d >> 31));
+  zz[i] = z;
+  int len = 1;
+#pragma unroll
+  for (int k = 1; k < 5; ++k) len += z >= (1u << (7 * k));
+  lens[i] = len;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    uint32_t b = (z >> (7 * j)) & 0x7Fu;
+    if (j < len - 1) b |= 0x80u;
+    planes[(int64_t)j * n + i] = (uint8_t)b;
+  }
 }
 
 // u64 values -> varint byte counts and (10, n) byte planes: plane j holds
@@ -101,6 +130,14 @@ const char* repro_error_string(int err) {
 int delta_zigzag(const void* x, void* out, int64_t n, void* stream) {
   delta_zigzag_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)x, (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+int delta_zigzag_varint(const void* x, void* zz, void* lens, void* planes,
+                        int64_t n, void* stream) {
+  delta_zigzag_varint_kernel<<<blocks_for(n), kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (uint32_t*)zz, (int32_t*)lens, (uint8_t*)planes, n);
   return (int)cudaGetLastError();
 }
 

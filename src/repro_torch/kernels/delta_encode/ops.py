@@ -9,10 +9,11 @@ Each kernel replaces a Pallas kernel of the JAX package's
 ``kernels/delta_encode/delta_encode.py``:
 
 - ``delta_zigzag``: ``delta_zigzag_pallas`` (:40)
+- ``delta_zigzag_varint``: ``delta_zigzag_varint_pallas`` (:100)
 - ``uvarint_encode64``: ``uvarint_encode64_pallas`` (:155)
 - ``fit_columns``: ``fit_columns_pallas`` (:202)
 
-All three are bound by bytes moved, and at the tracer's sizes by launch
+All four are bound by bytes moved, and at the tracer's sizes by launch
 latency and host<->device copies (see ``PERF.md``).
 """
 
@@ -24,11 +25,13 @@ from typing import Tuple
 import torch
 
 from .. import _build
-from .ref import delta_zigzag_ref, fit_columns_ref, uvarint_encode64_ref
+from .ref import (delta_zigzag_ref, delta_zigzag_varint_ref, fit_columns_ref,
+                  uvarint_encode64_ref)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "delta_zigzag": [_P, _P, _I, _P],
+    "delta_zigzag_varint": [_P, _P, _P, _P, _I, _P],
     "uvarint_encode64": [_P, _P, _P, _I, _P],
     "fit_columns": [_P, _P, _P, _I, _I, _P],
 }
@@ -50,6 +53,25 @@ def delta_zigzag(ticks: torch.Tensor) -> torch.Tensor:
         _build.launch(_lib(), "delta_zigzag", ticks.device,
                       _build.ptr(ticks), _build.ptr(out), n)
     return out
+
+
+def delta_zigzag_varint(ticks: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flat u32 ticks as int32 bit patterns, shape (n,) -> (zigzag'd deltas
+    as int32 bit patterns (n,), int32 varint byte counts (n,), uint8 byte
+    planes (5, n)) for the host varint scatter."""
+    _build.check(ticks, "ticks", torch.int32, 1)
+    if ticks.device.type == "cpu":
+        return delta_zigzag_varint_ref(ticks)
+    n = ticks.numel()
+    zz = torch.empty_like(ticks)
+    lens = torch.empty(n, dtype=torch.int32, device=ticks.device)
+    planes = torch.empty((5, n), dtype=torch.uint8, device=ticks.device)
+    if n:
+        _build.launch(_lib(), "delta_zigzag_varint", ticks.device,
+                      _build.ptr(ticks), _build.ptr(zz), _build.ptr(lens),
+                      _build.ptr(planes), n)
+    return zz, lens, planes
 
 
 def uvarint_encode64(values: torch.Tensor

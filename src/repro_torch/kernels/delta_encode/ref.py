@@ -33,6 +33,26 @@ def delta_zigzag_ref(ticks: torch.Tensor) -> torch.Tensor:
     return _as_int32(((d << 1) ^ (d >> 63)) & (_U32 - 1))
 
 
+def delta_zigzag_varint_ref(ticks: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Flat u32 ticks (int32 bit patterns) -> (zigzag'd deltas as int32 bit
+    patterns (n,), int32 varint byte counts (n,), (5, n) uint8 byte planes
+    with continuation bits): :func:`delta_zigzag_ref` and the varint split
+    of a u32 in one call."""
+    zz = delta_zigzag_ref(ticks)
+    z = zz.to(torch.int64) & (_U32 - 1)
+    lens = torch.ones(z.shape, dtype=torch.int32, device=z.device)
+    for k in range(1, 5):
+        lens += (z >= (1 << (7 * k))).to(torch.int32)
+    planes = torch.empty((5,) + tuple(z.shape), dtype=torch.uint8,
+                         device=z.device)
+    for j in range(5):
+        b = (z >> (7 * j)) & 0x7F
+        planes[j] = torch.where(j < lens - 1, b | 0x80, b).to(torch.uint8)
+    return zz, lens, planes
+
+
 def uvarint_encode64_ref(values: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """u64 values (int64 bit patterns) -> (int32 varint byte counts,

@@ -1,4 +1,7 @@
-"""Plain PyTorch version of the grammar_stats kernel."""
+"""Plain PyTorch versions of the grammar_stats kernels.
+
+The wrappers in ``ops.py`` run these for tensors on the CPU, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card."""
 
 from __future__ import annotations
 
@@ -12,3 +15,20 @@ def row_boundaries_ref(V: torch.Tensor) -> torch.Tensor:
     if V.shape[0] > 1:
         mask[1:] = (V[1:] != V[:-1]).any(dim=1)
     return mask
+
+
+def histogram_ref(stream: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """int64 stream (n,) -> int64 counts (n_bins,) of the values in
+    [0, n_bins); other values are ignored."""
+    keep = stream[(stream >= 0) & (stream < n_bins)]
+    return torch.bincount(keep, minlength=n_bins)[:n_bins]
+
+
+def digram_codes_ref(stream: torch.Tensor, n_terminals: int) -> torch.Tensor:
+    """int64 terminal stream (n,) -> int64 pair codes
+    ``stream[i-1] * n_terminals + stream[i]`` (n,); position 0 is -1."""
+    out = torch.empty_like(stream)
+    if stream.numel():
+        out[0] = -1
+        out[1:] = stream[:-1] * n_terminals + stream[1:]
+    return out

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (exact: all four are integer maps).  Every test here needs a CUDA
+card (exact: all seven are integer maps; histogram counts are integers,
+so the order of its atomic adds cannot change them).  Every test here needs a CUDA
 device and skips without one; on a machine with the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -14,10 +15,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.delta_encode import ops as de
 from repro_torch.kernels.delta_encode.ref import (delta_zigzag_ref,
+                                                  delta_zigzag_varint_ref,
                                                   fit_columns_ref,
                                                   uvarint_encode64_ref)
 from repro_torch.kernels.grammar_stats import ops as gs
-from repro_torch.kernels.grammar_stats.ref import row_boundaries_ref
+from repro_torch.kernels.grammar_stats.ref import (digram_codes_ref,
+                                                   histogram_ref,
+                                                   row_boundaries_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +86,37 @@ def test_row_boundaries(dev, n, k):
     V = torch.from_numpy(V.astype(np.int64))
     assert torch.equal(gs.row_boundaries(V.to(dev)).cpu(),
                        row_boundaries_ref(V))
+
+
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 4099, 65537])
+def test_delta_zigzag_varint(dev, n):
+    x = _u32(n, n + 1)
+    got = de.delta_zigzag_varint(x.to(dev))
+    for g, w in zip(got, delta_zigzag_varint_ref(x)):
+        assert torch.equal(g.cpu(), w)
+
+
+# 58,112 uint32 bins fill Hopper's 227 KB of shared memory a block; 65,536
+# and 2^20 bins run the kernel that adds straight into global memory
+@pytest.mark.parametrize("n_bins", [1, 64, 4096, 58112, 65536, 1 << 20])
+@pytest.mark.parametrize("n", [1, 257, 65537])
+def test_histogram(dev, n, n_bins):
+    rng = np.random.RandomState(n + n_bins)
+    s = rng.randint(-3, n_bins + 3, size=n).astype(np.int64)
+    s[rng.rand(n) < 0.05] = -(1 << 40)
+    s = torch.from_numpy(s)
+    got = gs.histogram(s.to(dev), n_bins)
+    assert got.dtype == torch.int64
+    assert torch.equal(got.cpu(), histogram_ref(s, n_bins))
+
+
+@pytest.mark.parametrize("T", [1, 40, 1 << 20])
+@pytest.mark.parametrize("n", [1, 2, 257, 65537])
+def test_digram_codes(dev, n, T):
+    s = torch.from_numpy(np.random.RandomState(n + T).randint(
+        0, T, size=n).astype(np.int64))
+    assert torch.equal(gs.digram_codes(s.to(dev), T).cpu(),
+                       digram_codes_ref(s, T))
 
 
 def test_launches_are_counted(dev):

@@ -172,6 +172,76 @@ def test_encode_many_matches_reference(backend):
             == {k: vars(v) for k, v in ref_tr._runs.items()})
 
 
+@pytest.mark.parametrize("backend", CPU_BACKENDS)
+@pytest.mark.parametrize("n", [0, 1, 7, 1024, 4099])
+def test_encode_ticks_varint_matches_reference(backend, n):
+    ticks = _flat_ticks(n, seed=n + 2)
+    want = ref_eb.encode_ticks_varint(ticks, "python")
+    assert eb.encode_ticks_varint(ticks, backend) == want
+    # the stream is the uvarint coding of the zigzag deltas
+    zz = eb.delta_zigzag(ticks, "python") if n else []
+    assert want == ref_pack([int(v) for v in zz], backend="python")
+
+
+@pytest.mark.parametrize("backend", CPU_BACKENDS)
+@pytest.mark.parametrize("n,n_bins", [(0, 3), (1, 4), (1000, 7),
+                                      (5000, 64), (4099, 4096)])
+def test_terminal_histogram_matches_reference(backend, n, n_bins):
+    rng = np.random.RandomState(n + n_bins)
+    stream = rng.randint(-2, n_bins + 3, size=n).astype(np.int64)
+    want = ref_eb.terminal_histogram(stream, n_bins, "python")
+    got = eb.terminal_histogram(stream, n_bins, backend)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("backend", CPU_BACKENDS)
+@pytest.mark.parametrize("n,T", [(0, 3), (1, 3), (2, 1), (2000, 5),
+                                 (4097, 40)])
+def test_digram_histogram_matches_reference(backend, n, T):
+    stream = np.random.RandomState(n * 3 + T).randint(
+        0, T, size=n).astype(np.int64)
+    want = ref_eb.digram_histogram(stream, T, "python")
+    assert eb.digram_histogram(stream, T, backend) == want
+    assert sum(want.values()) == max(0, n - 1)
+
+
+@pytest.fixture
+def card_on_cpu(monkeypatch):
+    """A stand-in card: ``cuda`` resolves, and its tensors stay on the CPU
+    so the wrappers run their plain versions; records each wrapper call."""
+    from repro_torch.kernels.delta_encode import ops as de
+    from repro_torch.kernels.grammar_stats import ops as gs
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(eb, "_to_device",
+                        lambda a, b: torch.from_numpy(np.ascontiguousarray(a)))
+    for mod, name in ((de, "delta_zigzag_varint"), (gs, "histogram"),
+                      (gs, "digram_codes")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name: (
+            calls.append(_n) or _r(*a)))
+    return calls
+
+
+def test_cuda_route_takes_the_kernels_at_any_width(card_on_cpu):
+    """``cuda`` hands values at or above 2^31 to the kernels, never to
+    NumPy, and its answers equal the reference's ``python`` path."""
+    big = np.asarray([(1 << 40) + 5, 3, (1 << 40) + 5, 1 << 33, 3, -7],
+                     np.int64)
+    np.testing.assert_array_equal(
+        eb.terminal_histogram(big, 8, "cuda"),
+        ref_eb.terminal_histogram(big, 8, "python"))
+    T = 1 << 20                                       # codes pass 2^31
+    s = np.random.RandomState(0).randint(0, T, size=3000).astype(np.int64)
+    assert (eb.digram_histogram(s, T, "cuda")
+            == ref_eb.digram_histogram(s, T, "python"))
+    ticks = _flat_ticks(3000, seed=9)
+    assert (eb.encode_ticks_varint(ticks, "cuda")
+            == ref_eb.encode_ticks_varint(ticks, "python"))
+    assert card_on_cpu == ["histogram", "digram_codes", "delta_zigzag_varint"]
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -187,6 +257,12 @@ def test_cuda_backend_raises_without_card(no_card):
         eb.fit_classify(np.zeros((3, 4), np.int64), "cuda")
     with pytest.raises(RuntimeError, match="CUDA device"):
         eb.run_boundaries(np.zeros((3, 1), np.int64), "cuda")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        eb.encode_ticks_varint(flat, "cuda")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        eb.terminal_histogram(flat, 4, "cuda")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        eb.digram_histogram(flat, 10, "cuda")
     with pytest.raises(RuntimeError, match="CUDA device"):
         Recorder(config=RecorderConfig(encode_backend="cuda"))
 

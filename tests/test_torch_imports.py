@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and nothing in
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
-importing the port's Recorder leaves ``jax`` unloaded."""
+importing the port's Recorder, its read side and its trace service leaves
+``jax`` unloaded."""
 
 import ast
 import os
@@ -49,7 +50,9 @@ def test_no_jax_or_reference_import(path):
 
 def test_recorder_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.core.recorder, repro_torch.core.reader, "
-            "repro_torch.core.apis; "
+            "repro_torch.core.apis, repro_torch.core.traceview, "
+            "repro_torch.core.analysis, repro_torch.core.converters, "
+            "repro_torch.traceserve, repro_torch.launch.traceserve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(_REPO, "src"))

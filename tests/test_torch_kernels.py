@@ -133,12 +133,84 @@ def test_row_boundaries_matches_pallas(n, k):
     np.testing.assert_array_equal(got.astype(np.int32), want)
 
 
+@pytest.mark.parametrize("style", STYLES)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_delta_zigzag_varint_matches_pallas(style, n):
+    x = _ticks(n, style, seed=n + 1)
+    zz_w, lens_w, planes_w = ref_de.delta_zigzag_varint(jnp.asarray(x),
+                                                        interpret=True)
+    zz, lens, planes = de.delta_zigzag_varint(_to_t(x.view(np.int32)))
+    np.testing.assert_array_equal(zz.numpy().view(np.uint32),
+                                  np.asarray(zz_w))
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(lens_w))
+    np.testing.assert_array_equal(planes.numpy(),
+                                  np.asarray(planes_w).astype(np.uint8))
+    assert planes.shape == (5, n)
+
+
+def _symbols(n, hi, seed, outside=False):
+    """int64 stream in [0, hi); with ``outside``, also negative values and
+    values at or above ``hi``, which a histogram must ignore."""
+    rng = np.random.RandomState(seed)
+    s = rng.randint(0, hi, size=n).astype(np.int64)
+    if outside and n:
+        bad = rng.rand(n) < 0.2
+        s[bad] = rng.choice([-1, -(1 << 40), hi, hi + 7, 1 << 40],
+                            size=int(bad.sum()))
+    return s
+
+
+@pytest.mark.parametrize("n_bins", [1, 7, 64, 4096])
+@pytest.mark.parametrize("n", LENGTHS)
+def test_histogram_matches_pallas(n, n_bins):
+    s = _symbols(n, n_bins, seed=n + n_bins, outside=True)
+    # Pallas takes int32: keep the out-of-range values inside int32 there
+    s32 = np.clip(s, -5, n_bins + 5).astype(np.int32)
+    want = np.asarray(ref_gs.histogram(jnp.asarray(s32), n_bins,
+                                       interpret=True))
+    np.testing.assert_array_equal(
+        gs.histogram(_to_t(s32.astype(np.int64)), n_bins).numpy(), want)
+    got = gs.histogram(_to_t(s), n_bins)
+    assert got.dtype == torch.int64 and got.shape == (n_bins,)
+    np.testing.assert_array_equal(
+        got.numpy(), np.bincount(s[(s >= 0) & (s < n_bins)],
+                                 minlength=n_bins))
+
+
+@pytest.mark.parametrize("T", [1, 3, 40, 1000])
+@pytest.mark.parametrize("n", LENGTHS)
+def test_digram_codes_matches_pallas(n, T):
+    s = _symbols(n, T, seed=n * 7 + T)
+    want = np.asarray(ref_gs.digram_codes(jnp.asarray(s.astype(np.int32)),
+                                          T, interpret=True))
+    got = gs.digram_codes(_to_t(s), T)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+def test_digram_codes_pass_int32():
+    """T = 2^20: codes pass 2^31, where the Pallas kernel's int32 codes
+    would wrap; the int64 plain version gives the exact products."""
+    T = 1 << 20
+    s = _symbols(4099, T, seed=3)
+    got = gs.digram_codes(_to_t(s), T).numpy()
+    assert got[0] == -1
+    np.testing.assert_array_equal(got[1:], s[:-1] * T + s[1:])
+    assert got.max() >= 1 << 31
+
+
 @pytest.mark.parametrize("call,arg", [
     (de.delta_zigzag, torch.zeros(4, dtype=torch.int64)),       # dtype
     (de.delta_zigzag, torch.zeros((2, 2), dtype=torch.int32)),  # rank
     (de.uvarint_encode64, torch.zeros(4, dtype=torch.int32)),
     (de.fit_columns, torch.zeros((4, 1), dtype=torch.int64)),   # R < 2
     (gs.row_boundaries, torch.zeros((4, 3), dtype=torch.int64)[:, ::2]),
+    (de.delta_zigzag_varint, torch.zeros(4, dtype=torch.int64)),
+    (de.delta_zigzag_varint, torch.zeros(8, dtype=torch.int32)[::2]),
+    (lambda x: gs.histogram(x, 4), torch.zeros(4, dtype=torch.int32)),
+    (lambda x: gs.histogram(x, -1), torch.zeros(4, dtype=torch.int64)),
+    (lambda x: gs.digram_codes(x, 4), torch.zeros((2, 2), dtype=torch.int64)),
+    (lambda x: gs.digram_codes(x, 0), torch.zeros(4, dtype=torch.int64)),
 ])
 def test_wrappers_reject_bad_inputs(call, arg):
     with pytest.raises((TypeError, ValueError)):
@@ -151,6 +223,9 @@ def test_cpu_wrappers_launch_nothing():
     de.uvarint_encode64(torch.arange(9, dtype=torch.int64))
     de.fit_columns(torch.zeros((3, 4), dtype=torch.int64))
     gs.row_boundaries(torch.zeros((3, 2), dtype=torch.int64))
+    de.delta_zigzag_varint(torch.arange(9, dtype=torch.int32))
+    gs.histogram(torch.arange(9, dtype=torch.int64), 4)
+    gs.digram_codes(torch.arange(9, dtype=torch.int64), 9)
     assert _build.launch_counts() == {}
 
 
