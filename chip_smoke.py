@@ -10,8 +10,10 @@ library, builds the port's CUDA kernels from ``src/repro_torch/kernels/
 csrc`` and then runs, in order:
 
 1. build     -- compile every kernel source (one nvcc each, in parallel);
-2. kernels   -- each kernel against its plain PyTorch version on the card,
-                exact, at edge and full sizes;
+2. kernels   -- each kernel against its plain PyTorch version on the card:
+                the encode and read kernels exact, flash attention and
+                RMSNorm within f32 2e-5 / bf16 2e-2, at edge and full
+                sizes;
 3. IOR       -- the write path: 32 ranks x 16,384 lseek+write iterations
                 (paper Listing 3, 1 MiB transfers to one shared file) as
                 ThreadComm ranks, finalized tree and flat on the ``cuda``
@@ -29,9 +31,18 @@ csrc`` and then runs, in order:
                 the three IOR jobs answering every query family, the
                 ``traceserve`` CLI in a subprocess, and a live streaming
                 job folded one segment per committed epoch;
-7. report    -- the kernels' launch counts from phases 3-6 (each must be
-                above 0) and their times at the shapes phases 3-6 gave
-                them, as one JSON line.
+7. serve     -- the model workload the tracer watches: qwen3-32b at every
+                published width, 16 of its 64 layers, bf16, random weights
+                from a seeded generator, served by ``ServeEngine`` (4
+                prompts of 1,024 tokens, 32 new tokens each) on the kernel
+                path inside a ``session``; the trace must read back 31
+                ``serve_step`` records, and the same weights and prompts
+                run again on the plain ``"torch"`` attention path to
+                compare with; the qwen3-32b smoke model on the card must
+                give the CPU's logits and tokens;
+8. report    -- the kernels' launch counts from phases 3-6 and from the
+                serve run (each must be above 0) and their times at the
+                shapes those phases gave them, as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the run exits non-zero and prints no such line.  Without a
@@ -63,6 +74,19 @@ XFER = 1 << 20
 BACKEND = "cuda"               # the encode backend the main path runs on
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, NVIDIA data sheet
 CORE_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 rate, same source
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, same
+
+# the serve phase: qwen3-32b at its published widths, 16 of 64 layers
+SERVE_ARCH = "qwen3-32b"
+SERVE_LAYERS = 16
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 4, 1024, 32, 2048
+# prefill logits of the kernel path against the plain "torch" path,
+# relative L2 error: the paths differ by the bf16 rounding of p in every
+# attention, which the bf16 layers carry to the logits.  The 3-layer bf16
+# smoke model shows 1.2e-2 on the CPU; sqrt(16 / 3) times that is 2.8e-2
+SERVE_LOGITS_RTOL = 5e-2
+# tolerances of tests/test_kernels.py for kernel against plain version
+FLOAT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def log(msg: str) -> None:
@@ -235,6 +259,69 @@ def phase_kernels(k) -> None:
                 require(int(codes.max()) >= 1 << 31,
                         f"digram_codes n={n}: no code passed 2^31")
         log(f"delta_zigzag_varint, histogram, digram_codes exact at n={n}")
+    model_kernels(k)
+
+
+def randn(shape, seed: int, dtype: torch.dtype) -> torch.Tensor:
+    x = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    return torch.from_numpy(x).to("cuda", dtype)
+
+
+def close_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Max abs error of ``got`` against ``want``; fails unless every
+    element is within FLOAT_TOL (atol + rtol * |want|)."""
+    torch.cuda.synchronize()
+    require(got.dtype == want.dtype and got.shape == want.shape,
+            f"{what}: {got.dtype} {tuple(got.shape)} != {want.dtype} "
+            f"{tuple(want.shape)}")
+    tol = FLOAT_TOL[want.dtype]
+    g, w = got.float(), want.float()
+    require(bool(((g - w).abs() <= tol + tol * w.abs()).all()),
+            f"{what}: kernel differs from plain beyond {tol}")
+    return float((g - w).abs().max()) if g.numel() else 0.0
+
+
+def model_kernels(k) -> None:
+    """Flash attention and RMSNorm against their plain versions: bf16 and
+    f32, GQA groups 1 and 8, causal, non-causal and windowed masks, prime
+    and ragged lengths, every supported head dim, the serve shapes."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for S, H, KVH, D in ((1, 8, 1, 128), (37, 8, 8, 16), (131, 8, 1, 32),
+                             (1000, 4, 4, 64), (1024, 16, 2, 128),
+                             (100, 2, 2, 8)):
+            for causal, window in ((True, 0), (False, 0), (True, 100)):
+                q = randn((2, S, H, D), S, dtype)
+                kk = randn((2, S, KVH, D), S + 1, dtype)
+                v = randn((2, S, KVH, D), S + 2, dtype)
+                what = (f"flash_attention S={S} H={H} KVH={KVH} D={D} "
+                        f"causal={causal} window={window} {dtype}")
+                err = close_err(k.fa.flash_attention(q, kk, v, causal=causal,
+                                                     window=window),
+                                k.fa_ref.flash_attention_ref(
+                                    q, kk, v, causal=causal, window=window),
+                                what)
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+        for shape in ((1, 128), (37, 128), (256, 128), (32, 128),
+                      (32768, 128), (262144, 128), (3, 100), (5, 8192)):
+            x = randn(shape, shape[0], dtype)
+            w = torch.rand(shape[-1], generator=torch.Generator(
+                device="cuda").manual_seed(1), device="cuda")
+            close_err(k.rn.rmsnorm(x, w, eps=1e-6),
+                      k.rn_ref.rmsnorm_ref(x, w, eps=1e-6),
+                      f"rmsnorm {shape} {dtype}")
+    log(f"flash_attention within tolerance at S 1..1024, D 8..128, groups "
+        f"1 and 8, three masks (max abs error f32 "
+        f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}); "
+        f"rmsnorm within tolerance at 1..262,144 rows, d 100..8192")
+    q = randn((4, 1024, 64, 128), 1, torch.bfloat16)
+    kk = randn((4, 1024, 8, 128), 2, torch.bfloat16)
+    v = randn((4, 1024, 8, 128), 3, torch.bfloat16)
+    err = close_err(k.fa.flash_attention(q, kk, v),
+                    k.fa_ref.flash_attention_ref(q, kk, v),
+                    "flash_attention at the serve prefill shape")
+    log(f"flash_attention at the serve prefill shape (4, 1024, 64, 128) "
+        f"bf16 causal: max abs error {err:.3g}")
 
 
 def bin_files(tdir: str) -> dict:
@@ -591,6 +678,150 @@ def live_job(p) -> int:
     return LIVE_EPOCHS
 
 
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def phase_serve(s) -> dict:
+    """Serve qwen3-32b (16 layers, full widths) on the kernel path: a
+    warm-up, a timed run, then the main path -- launch counts set to 0
+    just before, read just after -- inside a ``session`` under the
+    profiler.  Then the plain ``"torch"`` path on the same weights and
+    prompts, and the smoke model on the card against the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    cfg = s.get_config(SERVE_ARCH).replace(n_layers=SERVE_LAYERS)
+    require(cfg.attn_impl == "cuda", "the kernel path must be the default")
+    t = time.monotonic()
+    params = s.get_model(cfg, dev).init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    flat = s.flat_params(params)
+    n_params = sum(x.numel() for x in flat.values())
+    n_bytes = sum(x.numel() * x.element_size() for x in flat.values())
+    log(f"serve: {cfg.name}, {cfg.n_layers} of 64 layers at d {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+        f"{cfg.param_dtype}: {n_params} parameters, {n_bytes} B, initialised "
+        f"in {time.monotonic() - t:.2f} s")
+    batch = {"tokens": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)}
+    eng = s.ServeEngine(cfg, params, max_seq=SERVE_MAX_SEQ, device=dev)
+    eng.generate(batch, 2)                 # warm-up: cuBLAS, first loads
+    toks = eng.generate(batch, SERVE_NEW)  # timed, neither traced nor profiled
+    st = dict(eng.stats)
+    n_tok = SERVE_BATCH * SERVE_NEW
+    res = {"prefill_ms": st["prefill_s"] * 1e3,
+           "decode_ms_per_step": st["decode_s"] * 1e3 / st["decode_steps"],
+           "tokens_per_s": n_tok / (st["prefill_s"] + st["decode_s"]),
+           "decode_tokens_per_s": SERVE_BATCH * st["decode_steps"]
+           / st["decode_s"]}
+    log(f"serve (kernel path): prefill of {SERVE_BATCH} x {SERVE_PROMPT} "
+        f"tokens {res['prefill_ms']:.2f} ms, decode "
+        f"{res['decode_ms_per_step']:.3f} ms per step of {SERVE_BATCH} "
+        f"tokens, {res['tokens_per_s']:.1f} "
+        f"tokens/s over {n_tok} generated ({res['decode_tokens_per_s']:.1f} "
+        f"tokens/s in decode)")
+
+    tdir = os.path.join(WORK, "serve", "trace")
+    shutil.rmtree(tdir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    s.build.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        with s.session(s.RecorderConfig(trace_dir=tdir,
+                                        encode_backend=BACKEND)):
+            traced = eng.generate(batch, SERVE_NEW)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+    launches = s.build.launch_counts()
+    res["launches"] = launches
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    busy = device_busy_ms(prof)
+    res["traced_s"], res["busy_ms"] = secs, busy
+    top = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    log("serve main path, device time by kernel: " + "; ".join(
+        f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+        for e in top))
+    log(f"serve main path (traced, profiled): {secs:.3f} s, prefill "
+        f"{eng.stats['prefill_s'] * 1e3:.2f} ms, decode "
+        f"{eng.stats['decode_s'] * 1e3:.2f} ms; device busy {busy:.3f} ms "
+        f"(idle share {1 - busy / (secs * 1e3):.6f}); max memory allocated "
+        f"{res['peak_bytes']} B; launches {launches}")
+    require(traced.shape == (SERVE_BATCH, SERVE_NEW)
+            and int(traced.min()) >= 0
+            and int(traced.max()) < cfg.vocab_size,
+            f"serve: tokens of shape {traced.shape} or out of the vocab")
+    log(f"serve: traced run gave the timed run's tokens: "
+        f"{bool(np.array_equal(traced, toks))}")
+    reader = s.TraceReader(tdir)
+    steps = [r.arg("step_idx") for r in reader.iter_records(0)
+             if r.func == "serve_step"]
+    require(steps == list(range(SERVE_NEW - 1)),
+            f"serve trace: {len(steps)} serve_step records, want "
+            f"{SERVE_NEW - 1}")
+    require(launches.get("flash_attention") == SERVE_LAYERS,
+            f"flash_attention launched {launches.get('flash_attention')} "
+            f"times, want one per layer of the prefill ({SERVE_LAYERS})")
+    require(launches.get("rmsnorm") == 2 * SERVE_LAYERS * SERVE_NEW,
+            f"rmsnorm launched {launches.get('rmsnorm')} times, want q and k "
+            f"of every layer for every token ({2 * SERVE_LAYERS * SERVE_NEW})")
+    log(f"serve trace reads back {len(steps)} serve_step records")
+
+    with torch.inference_mode():
+        lg_kernel, _ = s.get_model(cfg, dev).prefill(params, batch)
+        tcfg = cfg.replace(attn_impl="torch")
+        lg_plain, _ = s.get_model(tcfg, dev).prefill(params, batch)
+    require(bool(torch.isfinite(lg_kernel).all()), "serve: logits not finite")
+    rel = float((lg_kernel - lg_plain).norm() / lg_plain.norm())
+    res["logits_rel_err"] = rel
+    res["logits_max_abs_err"] = float((lg_kernel - lg_plain).abs().max())
+    require(rel <= SERVE_LOGITS_RTOL,
+            f"serve: prefill logits of the kernel and torch paths differ by "
+            f"{rel:.3g} (relative L2), over {SERVE_LOGITS_RTOL}")
+    eng_t = s.ServeEngine(tcfg, params, max_seq=SERVE_MAX_SEQ, device=dev)
+    toks_t = eng_t.generate(batch, SERVE_NEW)
+    res["torch_prefill_ms"] = eng_t.stats["prefill_s"] * 1e3
+    res["torch_decode_ms_per_step"] = (eng_t.stats["decode_s"] * 1e3
+                                       / eng_t.stats["decode_steps"])
+    same = toks == toks_t
+    prefix = [int(np.argmin(row)) if not row.all() else SERVE_NEW
+              for row in same]
+    res["tokens_agree"] = int(same.sum())
+    log(f"serve: prefill logits kernel vs torch path: relative L2 {rel:.3g}"
+        f" (limit {SERVE_LOGITS_RTOL}), max abs "
+        f"{res['logits_max_abs_err']:.3g}, max |logit| "
+        f"{float(lg_plain.abs().max()):.3g}; generated tokens that agree: "
+        f"{res['tokens_agree']} of {n_tok}, common prefix per sequence "
+        f"{prefix}; torch path prefill {res['torch_prefill_ms']:.2f} ms, "
+        f"decode {res['torch_decode_ms_per_step']:.3f} ms per step")
+    del params, eng, eng_t, flat, lg_kernel, lg_plain
+    torch.cuda.empty_cache()
+
+    scfg = s.get_smoke_config(SERVE_ARCH)
+    sp = s.get_model(scfg, "cpu").init_params(torch.Generator().manual_seed(0))
+    sb = {"tokens": np.random.RandomState(0).randint(
+        0, scfg.vocab_size, size=(2, 37)).astype(np.int32)}
+    want, _ = s.get_model(scfg, "cpu").prefill(sp, sb)
+    got, _ = s.get_model(scfg, dev).prefill(to_device(sp, dev), sb)
+    err = float((got.cpu() - want).abs().max())
+    require(err <= 1e-4, f"smoke model: card logits differ from the CPU's "
+            f"by {err:.3g} (limit 1e-4)")
+    want = s.ServeEngine(scfg, sp, max_seq=64, device="cpu").generate(sb, 8)
+    got = s.ServeEngine(scfg, to_device(sp, dev), max_seq=64,
+                        device=dev).generate(sb, 8)
+    require(np.array_equal(got, want), "smoke model: card tokens != CPU's")
+    log(f"smoke {SERVE_ARCH} (f32, head dim {scfg.hd}) on the card: prefill "
+        f"logits within {err:.3g} of the CPU's plain path, 8 greedy tokens "
+        f"identical")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # timing at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -615,10 +846,12 @@ L2_BYTES = 50 << 20            # H100 SXM L2 cache, NVIDIA data sheet
 
 
 def device_kernel_ms(fn, kernel: str, iters: int = 20, cold: bool = False):
-    """Mean device time per call of the CUDA kernel whose name contains
-    ``kernel``, from torch.profiler; None when the profile has none.
-    Back to back, a working set under the 50 MB L2 stays cached; with
-    ``cold``, twice the L2 is overwritten before every call."""
+    """Mean device time per launch of the CUDA kernel whose name contains
+    ``kernel``, from torch.profiler, over the launches the profile
+    recorded (each call launches it once; a shortfall is logged); None
+    when the profile has none.  Back to back, a working set under the
+    50 MB L2 stays cached; with ``cold``, twice the L2 is overwritten
+    before every call."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.int32,
                         device="cuda") if cold else None
@@ -630,9 +863,13 @@ def device_kernel_ms(fn, kernel: str, iters: int = 20, cold: bool = False):
                 flush.zero_()
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if kernel in e.key)
-    return total / iters / 1e3 if total else None
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(e.self_device_time_total for e in hits)
+    count = sum(e.count for e in hits)
+    if count != iters:
+        log(f"profile of {kernel} ({'cold' if cold else 'warm'}) recorded "
+            f"{count} launches of {iters} calls")
+    return total / count / 1e3 if total else None
 
 
 def host_ms(fn, iters: int = 50) -> float:
@@ -783,6 +1020,85 @@ def kernel_report(k, p, shapes: dict, launches: dict,
     return rows
 
 
+FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+RN_SRC = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+FA_TPU = "src/repro/kernels/flash_attention/flash_attention.py:72"
+RN_TPU = "src/repro/kernels/rmsnorm/rmsnorm.py:25"
+
+
+def model_kernel_report(k, shapes: dict, launches: dict, kv_heads: int
+                        ) -> list:
+    """Rows of the kernels line for flash attention and RMSNorm at the
+    largest shapes the serve run gave them (bf16, causal), with the launch
+    counts of the serve main path."""
+    import torch.nn.functional as F
+
+    def top(name):
+        require(bool(shapes.get(name)), f"{name} saw no main-path call")
+        return max(shapes[name], key=lambda s: int(np.prod(s)))
+
+    B, S, H, D = top("flash_attention")
+    bf = torch.bfloat16
+    q = randn((B, S, H, D), 21, bf)
+    kk = randn((B, S, kv_heads, D), 22, bf)
+    v = randn((B, S, kv_heads, D), 23, bf)
+    x = randn(top("rmsnorm"), 24, bf)
+    w = torch.rand(x.shape[-1], generator=torch.Generator(
+        device="cuda").manual_seed(25), device="cuda")
+    pairs = S * (S + 1) // 2       # causal, Sq == Skv: visible (q, k) pairs
+    # name: (kernel, plain version, source, TPU kernel, device kernel name,
+    #        bytes moved, operations, peak rate of their type, library
+    #        call, shapes, timing iterations)
+    specs = {
+        "flash_attention": (
+            lambda: k.fa.flash_attention(q, kk, v),
+            lambda: k.fa_ref.flash_attention_ref(q, kk, v), FA_SRC, FA_TPU,
+            "flash_attention_kernel",
+            2 * (2 * q.numel() + kk.numel() + v.numel()),
+            4 * B * H * D * pairs, BF16_TENSOR_OPS_PER_S,
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2),
+            [list(q.shape), list(kk.shape)], 20),
+        "rmsnorm": (
+            lambda: k.rn.rmsnorm(x, w, eps=1e-6),
+            lambda: k.rn_ref.rmsnorm_ref(x, w, eps=1e-6), RN_SRC, RN_TPU,
+            "rmsnorm_kernel", 2 * 2 * x.numel() + 4 * w.numel(),
+            4 * x.numel(), CORE_OPS_PER_S,
+            lambda: F.rms_norm(x, (x.shape[-1],), w.to(bf), 1e-6),
+            [list(x.shape)], 200),
+    }
+    rows = []
+    for name, (kern, plain, source, replaces, kname, nbytes, nops, peak,
+               library, shape, iters) in specs.items():
+        ref = plain()
+        err = close_err(kern(), ref, f"{name} at the serve shape")
+        close_err(library(), ref, f"{name}: library call")
+        ms = cuda_ms(kern, iters=iters)
+        device_ms = device_kernel_ms(kern, kname)
+        device_cold_ms = device_kernel_ms(kern, kname, cold=True)
+        plain_ms = cuda_ms(plain, iters=max(iters // 4, 5))
+        library_ms = cuda_ms(library, iters=iters)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / peak * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "shape": shape, "dtype": "bfloat16",
+            "device_ms": device_ms, "device_cold_ms": device_cold_ms,
+            "bytes": nbytes, "operations": nops,
+        })
+        log(f"{name} at {shape} bf16: kernel {ms:.4f} ms per call (device "
+            f"{device_ms} ms, L2 flushed {device_cold_ms} ms), plain "
+            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+            f"{rows[-1]['bound_ms']:.6f} ms by {rows[-1]['bound_by']} "
+            f"({nbytes} B, {nops} operations), max abs error {err:.3g}")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -812,13 +1128,23 @@ def main() -> int:
     from repro_torch.kernels.delta_encode import ref as de_ref
     from repro_torch.kernels.grammar_stats import ops as gs_ops
     from repro_torch.kernels.grammar_stats import ref as gs_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
     from repro_torch.traceserve import QUERY_FAMILIES, TraceService
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import flat_params
+    from repro_torch.serve import ServeEngine
 
-    k = SimpleNamespace(de=de_ops, de_ref=de_ref, gs=gs_ops, gs_ref=gs_ref)
+    k = SimpleNamespace(de=de_ops, de_ref=de_ref, gs=gs_ops, gs_ref=gs_ref,
+                        fa=fa_ops, fa_ref=fa_ref, rn=rn_ops, rn_ref=rn_ref)
     wrappers = ((de_ops, "delta_zigzag"), (de_ops, "uvarint_encode64"),
                 (de_ops, "fit_columns"), (gs_ops, "row_boundaries"),
                 (de_ops, "delta_zigzag_varint"), (gs_ops, "histogram"),
                 (gs_ops, "digram_codes"))
+    model_wrappers = ((fa_ops, "flash_attention"), (rn_ops, "rmsnorm"))
     p = SimpleNamespace(eb=eb, recorder=recorder, posix=posix,
                         Recorder=recorder.Recorder,
                         RecorderConfig=recorder.RecorderConfig,
@@ -829,6 +1155,16 @@ def main() -> int:
                         expand_grammar=expand_grammar,
                         trace_format=trace_format, TraceService=TraceService,
                         QUERY_FAMILIES=QUERY_FAMILIES)
+    srv = SimpleNamespace(get_config=get_config,
+                          get_smoke_config=get_smoke_config,
+                          get_model=get_model, ServeEngine=ServeEngine,
+                          flat_params=flat_params, build=_build,
+                          session=recorder.session,
+                          RecorderConfig=recorder.RecorderConfig,
+                          TraceReader=TraceReader)
+    # f32 products in full f32 (PyTorch's default, stated): the f32 checks
+    # against plain versions assume it
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -842,19 +1178,21 @@ def main() -> int:
     with Phase("kernels"):
         phase_kernels(k)
 
-    # the main path, phases 3-6: counts start at 0 here and are read after;
-    # a shim records the shape each wrapper is called with (the wrapper
-    # itself counts its launches)
+    # the main paths: the tracer's (phases 3-6) and the serving run of
+    # phase 7; counts start at 0 just before each and are read just after
+    # (phase_serve does so around its traced run).  A shim records the
+    # shape each wrapper is called with (the wrapper itself counts its
+    # launches).
     shapes = collections.defaultdict(collections.Counter)
     lock = threading.Lock()
     originals = []
-    for mod, name in wrappers:
+    for mod, name in wrappers + model_wrappers:
         real = getattr(mod, name)
 
-        def shim(*args, _real=real, _name=name):
+        def shim(*args, _real=real, _name=name, **kw):
             with lock:
                 shapes[_name][tuple(args[0].shape)] += 1
-            return _real(*args)
+            return _real(*args, **kw)
         originals.append((mod, name, real))
         setattr(mod, name, shim)
     _build.reset_launches()
@@ -867,19 +1205,29 @@ def main() -> int:
             phase_patterns(p)
         with Phase("read"):
             read_inputs = phase_read(p)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        with Phase("serve"):
+            serve = phase_serve(srv)
     finally:
         for mod, name, real in originals:
             setattr(mod, name, real)
-    torch.cuda.synchronize()
-    launches = _build.launch_counts()
-    log(f"main-path launches: {launches}")
+    log(f"main-path launches, phases 3-6: {launches}; serve run: "
+        f"{serve['launches']}")
     for _mod, name in wrappers:
         require(launches.get(name, 0) > 0,
                 f"{name} was not launched on the main path")
         log(f"{name} main-path shapes: {dict(shapes[name].most_common(4))}")
+    for _mod, name in model_wrappers:
+        require(serve["launches"].get(name, 0) > 0,
+                f"{name} was not launched on the serve main path")
+        log(f"{name} serve shapes: {dict(shapes[name].most_common(4))}")
 
     with Phase("report"):
         rows = kernel_report(k, p, shapes, launches, read_inputs)
+        rows += model_kernel_report(
+            k, shapes, serve["launches"],
+            get_config(SERVE_ARCH).n_kv_heads)
     shutil.rmtree(WORK, ignore_errors=True)
     log(f"total {time.monotonic() - t_all:.1f} s (build {build_s:.2f} s)")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (exact: all seven are integer maps; histogram counts are integers,
-so the order of its atomic adds cannot change them).  Every test here needs a CUDA
+card.  The seven encode and read kernels are exact (integer maps;
+histogram counts are integers, so the order of its atomic adds cannot
+change them); flash attention and RMSNorm sum in another order than their
+plain versions and are held to f32 2e-5 and bf16 2e-2 (atol and rtol),
+the tolerances of ``tests/test_kernels.py``.  Every test here needs a CUDA
 device and skips without one; on a machine with the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -13,6 +16,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.delta_encode import ops as de
 from repro_torch.kernels.delta_encode.ref import (delta_zigzag_ref,
                                                   delta_zigzag_varint_ref,
@@ -124,3 +131,108 @@ def test_launches_are_counted(dev):
     de.delta_zigzag(_u32(10, 0).to(dev))
     de.delta_zigzag(torch.empty(0, dtype=torch.int32, device=dev))  # no-op
     assert _build.launch_counts() == {"delta_zigzag": 1}
+
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _close(got, want):
+    tol = TOL[want.dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _randn(shape, seed, dtype, dev):
+    x = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 24),
+                                           (False, 100)])
+@pytest.mark.parametrize("S,H,KVH,D", [(1, 8, 1, 128), (37, 8, 1, 16),
+                                       (131, 4, 4, 32), (1000, 8, 1, 64),
+                                       (1024, 16, 2, 128), (100, 2, 2, 8)])
+def test_flash_attention(dev, S, H, KVH, D, causal, window, dtype):
+    q = _randn((2, S, H, D), S, dtype, dev)
+    k = _randn((2, S, KVH, D), S + 1, dtype, dev)
+    v = _randn((2, S, KVH, D), S + 2, dtype, dev)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    _close(got, flash_attention_ref(q, k, v, causal=causal, window=window))
+
+
+def test_flash_attention_reads_strided_inputs(dev):
+    """q, k, v as column slices of one fused projection, not contiguous."""
+    B, S, H, KVH, D = 2, 77, 8, 2, 64
+    qkv = _randn((B, S, (H + 2 * KVH) * D), 5, torch.bfloat16, dev)
+    q = qkv[..., :H * D].view(B, S, H, D)
+    k = qkv[..., H * D:(H + KVH) * D].view(B, S, KVH, D)
+    v = qkv[..., (H + KVH) * D:].view(B, S, KVH, D)
+    assert not q.is_contiguous()
+    _close(flash_attention(q, k, v),
+           flash_attention_ref(q.contiguous(), k.contiguous(),
+                               v.contiguous()))
+
+
+def test_flash_attention_at_the_serving_prefill_shape(dev):
+    q = _randn((4, 1024, 64, 128), 1, torch.bfloat16, dev)
+    k = _randn((4, 1024, 8, 128), 2, torch.bfloat16, dev)
+    v = _randn((4, 1024, 8, 128), 3, torch.bfloat16, dev)
+    _close(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 128), (37, 128), (4, 7, 8, 128),
+                                   (262144, 128), (256, 128), (3, 100),
+                                   (5, 8192), (9, 8)])
+def test_rmsnorm(dev, shape, dtype):
+    x = _randn(shape, shape[0], dtype, dev)
+    w = torch.from_numpy(np.random.RandomState(1).rand(shape[-1])
+                         .astype(np.float32)).to(dev)
+    got = rmsnorm(x, w, eps=1e-6)
+    torch.cuda.synchronize()
+    _close(got, rmsnorm_ref(x, w, eps=1e-6))
+
+
+def test_rmsnorm_unaligned_rows(dev):
+    """A view that starts 2 bytes into its storage takes the scalar path."""
+    base = _randn((1 + 64 * 128,), 3, torch.bfloat16, dev)
+    x = base[1:].view(64, 128)
+    w = torch.ones(128, device=dev)
+    _close(rmsnorm(x, w), rmsnorm_ref(x, w))
+
+
+def test_model_kernels_launch_and_agree_with_the_cpu(dev):
+    """The qwen3-32b smoke model (f32) on the card against the same
+    weights on the CPU (plain versions): prefill logits and greedy
+    tokens; one flash_attention launch per layer of the prefill, two
+    rmsnorm launches per layer and token."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(dev)
+    cfg = get_smoke_config("qwen3-32b")
+    params = get_model(cfg, "cpu").init_params(torch.Generator().manual_seed(0))
+    params_dev = to(params)
+    batch = {"tokens": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(2, 37)).astype(np.int32)}
+    want_logits, _ = get_model(cfg, "cpu").prefill(params, batch)
+    got_logits, _ = get_model(cfg, dev).prefill(params_dev, batch)
+    torch.testing.assert_close(got_logits.cpu(), want_logits, atol=1e-4,
+                               rtol=1e-4)
+    want = ServeEngine(cfg, params, max_seq=64, device="cpu").generate(
+        batch, 8)
+    _build.reset_launches()
+    got = ServeEngine(cfg, params_dev, max_seq=64, device=dev).generate(
+        batch, 8)
+    counts = _build.launch_counts()
+    np.testing.assert_array_equal(got, want)
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["rmsnorm"] == 2 * cfg.n_layers * 8

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and nothing in
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
-importing the port's Recorder, its read side and its trace service leaves
-``jax`` unloaded."""
+importing the port's Recorder, its read side, its trace service, its
+models, serving engine and configs leaves ``jax`` unloaded."""
 
 import ast
 import os
@@ -52,7 +52,11 @@ def test_recorder_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.core.recorder, repro_torch.core.reader, "
             "repro_torch.core.apis, repro_torch.core.traceview, "
             "repro_torch.core.analysis, repro_torch.core.converters, "
-            "repro_torch.traceserve, repro_torch.launch.traceserve; "
+            "repro_torch.traceserve, repro_torch.launch.traceserve, "
+            "repro_torch.models, repro_torch.models.convert, "
+            "repro_torch.serve, repro_torch.launch.serve, "
+            "repro_torch.configs, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.rmsnorm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(_REPO, "src"))

@@ -1,0 +1,261 @@
+"""The port's dense models against the JAX package, on the CPU.
+
+Four smoke configurations cover the dense family's branches: qwen3-32b
+(QK-norm, GQA), qwen1.5-0.5b (QKV bias), chatglm3-6b (GQA, half RoPE,
+QKV bias) and stablelm-1.6b (LayerNorm, quarter RoPE, QKV bias).  The
+JAX package's randomly initialised parameters are carried across with
+``params_from_numpy``; both ``attn_impl`` of the port are held against
+the JAX package's XLA path: ``train_forward`` logits, ``prefill`` logits
+and caches, and 8 greedy ``decode_step``s (tokens exact, caches close).
+Tolerance f32 1e-4, as ``tests/test_kernels.py:101``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke
+from repro.models import get_model as jax_model
+from repro.serve.engine import _seat as jax_seat
+from repro_torch.configs import all_arch_names, get_config, get_smoke_config
+from repro_torch.models import get_model
+from repro_torch.models import layers as TL
+from repro_torch.models.convert import flat_params, params_from_numpy
+from repro_torch.serve.engine import _seat
+
+ARCHS = ["qwen3-32b", "qwen1.5-0.5b", "chatglm3-6b", "stablelm-1.6b"]
+TOL = 1e-4
+B, S, MAX_SEQ, STEPS = 2, 37, 64, 8
+
+
+def _close(got: torch.Tensor, want, tol=TOL):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def ref(request):
+    """The JAX package's outputs for one smoke architecture."""
+    arch = request.param
+    cfg = jax_smoke(arch)
+    m = jax_model(cfg)
+    params = m.init_params(jax.random.PRNGKey(0))
+    tok = np.random.RandomState(1).randint(0, cfg.vocab_size,
+                                           size=(B, S)).astype(np.int32)
+    logits, _ = jax.jit(m.train_forward)(params, {"tokens": tok})
+    pf_logits, pf_cache = jax.jit(m.prefill)(params, {"tokens": tok})
+    cache = jax_seat(cfg, m.init_cache(B, MAX_SEQ), pf_cache, S)
+    step = jax.jit(m.decode_step)
+    nxt = jnp.argmax(pf_logits[:, :cfg.vocab_size], axis=-1
+                     ).astype(jnp.int32)[:, None]
+    toks = []
+    for _ in range(STEPS):
+        nxt, cache = step(params, cache, nxt)
+        toks.append(np.asarray(nxt))
+    return {"arch": arch, "tree": jax.tree.map(np.asarray, params),
+            "tokens": tok, "logits": np.asarray(logits),
+            "pf_logits": np.asarray(pf_logits),
+            "pf_cache": jax.tree.map(np.asarray, pf_cache),
+            "steps": np.concatenate(toks, axis=1),
+            "cache": jax.tree.map(np.asarray, cache)}
+
+
+@pytest.mark.parametrize("impl", ["torch", "cuda"])
+def test_forward_prefill_decode_match_jax(ref, impl):
+    cfg = get_smoke_config(ref["arch"]).replace(attn_impl=impl)
+    model = get_model(cfg, "cpu")
+    params = params_from_numpy(cfg, ref["tree"], "cpu")
+    batch = {"tokens": ref["tokens"]}
+    logits, aux = model.train_forward(params, batch)
+    assert logits.dtype == torch.float32 and float(aux) == 0.0
+    _close(logits, ref["logits"])
+
+    pf_logits, pf_cache = model.prefill(params, batch)
+    _close(pf_logits, ref["pf_logits"])
+    assert pf_cache["pos"].tolist() == [S] * B
+    for i, lc in enumerate(pf_cache["layers"]):
+        for name in ("k", "v"):
+            _close(lc[name], ref["pf_cache"]["layers"][name][i])
+
+    cache = _seat(model.init_cache(B, MAX_SEQ), pf_cache)
+    nxt = torch.argmax(pf_logits[:, :cfg.vocab_size], dim=-1
+                       ).to(torch.int32)[:, None]
+    toks = []
+    for _ in range(STEPS):
+        nxt, cache = model.decode_step(params, cache, nxt)
+        assert nxt.dtype == torch.int32 and nxt.shape == (B, 1)
+        toks.append(nxt.numpy())
+    np.testing.assert_array_equal(np.concatenate(toks, axis=1), ref["steps"])
+    assert cache["pos"].tolist() == [S + STEPS] * B
+    for i, lc in enumerate(cache["layers"]):
+        for name in ("k", "v"):
+            _close(lc[name], ref["cache"]["layers"][name][i])
+
+
+def test_params_carry_across_by_name(ref):
+    cfg = get_smoke_config(ref["arch"])
+    params = params_from_numpy(cfg, ref["tree"], "cpu")
+    flat = flat_params(params)
+    tree = ref["tree"]
+    assert len(params["layers"]) == cfg.n_layers
+    for name, t in flat.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            leaf = tree["layers"]
+            for p in parts[2:]:
+                leaf = leaf[p]
+            leaf = leaf[int(parts[1])]
+        else:
+            leaf = tree
+            for p in parts:
+                leaf = leaf[p]
+        np.testing.assert_array_equal(t.numpy(), leaf)
+    n_jax = sum(a.size for a in jax.tree.leaves(tree))
+    assert sum(t.numel() for t in flat.values()) == n_jax
+
+
+def test_bf16_params_carry_bit_for_bit():
+    cfg = jax_smoke("qwen3-32b").replace(param_dtype="bfloat16",
+                                         dtype="bfloat16", n_layers=2)
+    tree = jax.tree.map(np.asarray,
+                        jax_model(cfg).init_params(jax.random.PRNGKey(3)))
+    params = params_from_numpy(cfg, tree, "cpu")
+    wq = params["layers"][1]["attn"]["wq"]
+    assert wq.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        wq.view(torch.int16).numpy().view(np.uint16),
+        tree["layers"]["attn"]["wq"][1].view(np.uint16))
+    assert params["layers"][1]["attn"]["q_norm"].dtype == torch.float32
+    f32 = params_from_numpy(cfg, tree, "cpu", dtype=torch.float32)
+    assert f32["embed"].dtype == torch.float32
+    np.testing.assert_array_equal(f32["embed"].numpy(),
+                                  tree["embed"].astype(np.float32))
+
+
+def test_cuda_path_matches_pallas_interpret():
+    """The port's kernel path against the JAX package's kernel path."""
+    cfg = jax_smoke("qwen3-32b")
+    m = jax_model(cfg.replace(attn_impl="pallas_interpret"))
+    params = m.init_params(jax.random.PRNGKey(0))
+    tok = np.random.RandomState(2).randint(0, cfg.vocab_size,
+                                           size=(B, 32)).astype(np.int32)
+    want, _ = jax.jit(m.train_forward)(params, {"tokens": tok})
+    tcfg = get_smoke_config("qwen3-32b")
+    assert tcfg.attn_impl == "cuda"
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, params), "cpu")
+    got, _ = get_model(tcfg, "cpu").train_forward(tparams, {"tokens": tok})
+    _close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "stablelm-1.6b"])
+def test_init_params_shapes_and_dtypes(arch):
+    """Same shapes and dtypes as the JAX package's init; seeded."""
+    cfg = get_smoke_config(arch).replace(param_dtype="bfloat16")
+    want = jax.eval_shape(jax_model(jax_smoke(arch).replace(
+        param_dtype="bfloat16")).init_params, jax.random.PRNGKey(0))
+    model = get_model(cfg, "cpu")
+    p = model.init_params(torch.Generator().manual_seed(0))
+    for name, t in flat_params(p).items():
+        parts = name.split(".")
+        leaf = want["layers"] if parts[0] == "layers" else want
+        for q in (parts[2:] if parts[0] == "layers" else parts):
+            leaf = leaf[q]
+        shape = leaf.shape[1:] if parts[0] == "layers" else leaf.shape
+        assert tuple(t.shape) == tuple(shape), name
+        assert str(t.dtype).split(".")[1] == str(leaf.dtype), name
+    again = model.init_params(torch.Generator().manual_seed(0))
+    assert torch.equal(p["layers"][1]["mlp"]["w_up"],
+                       again["layers"][1]["mlp"]["w_up"])
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.5, 0.25])
+def test_rope_matches_jax(fraction):
+    from repro.models.layers import rope_rotate
+    x = np.random.RandomState(4).randn(2, 9, 3, 16).astype(np.float32)
+    pos = np.tile(np.arange(100, 109), (2, 1))
+    got = TL.rope_rotate(torch.from_numpy(x), torch.from_numpy(pos), 1e6,
+                         fraction)
+    _close(got, rope_rotate(jnp.asarray(x), jnp.asarray(pos), 1e6, fraction),
+           2e-5)
+
+
+@pytest.mark.parametrize("norm", ["rms", "layer"])
+def test_apply_norm_matches_jax(norm):
+    from repro.models.layers import apply_norm
+    cfg = get_smoke_config("stablelm-1.6b").replace(norm=norm)
+    x = np.random.RandomState(5).randn(2, 5, 64).astype(np.float32)
+    rng = np.random.RandomState(6)
+    p = {"scale": rng.rand(64).astype(np.float32),
+         "bias": rng.randn(64).astype(np.float32)}
+    got = TL.apply_norm(torch.from_numpy(x),
+                        {k: torch.from_numpy(v) for k, v in p.items()}, cfg)
+    want = apply_norm(jnp.asarray(x), {k: jnp.asarray(v) for k, v in
+                                       p.items()}, jax_smoke("stablelm-1.6b")
+                      .replace(norm=norm))
+    _close(got, want, 2e-5)
+
+
+def test_sliding_window_ring_cache_matches_jax():
+    """A sliding window shorter than the prompt: the prefill fills a ring
+    cache with slot = pos % W, and decode keeps writing into it."""
+    arch = "qwen3-32b"
+    jcfg = jax_smoke(arch).replace(sliding_window=16)
+    m = jax_model(jcfg)
+    params = m.init_params(jax.random.PRNGKey(1))
+    tok = np.random.RandomState(7).randint(0, jcfg.vocab_size,
+                                           size=(B, S)).astype(np.int32)
+    pf_logits, pf_cache = jax.jit(m.prefill)(params, {"tokens": tok})
+    cache = jax_seat(jcfg, m.init_cache(B, MAX_SEQ), pf_cache, S)
+    step = jax.jit(m.decode_step)
+    nxt = jnp.argmax(pf_logits[:, :jcfg.vocab_size], -1).astype(
+        jnp.int32)[:, None]
+    want = []
+    for _ in range(4):
+        nxt, cache = step(params, cache, nxt)
+        want.append(np.asarray(nxt))
+    for impl in ("torch", "cuda"):
+        cfg = get_smoke_config(arch).replace(sliding_window=16,
+                                             attn_impl=impl)
+        model = get_model(cfg, "cpu")
+        tp = params_from_numpy(cfg, jax.tree.map(np.asarray, params), "cpu")
+        logits, tc = model.prefill(tp, {"tokens": tok})
+        _close(logits, pf_logits)
+        _close(tc["layers"][2]["k"], pf_cache["layers"]["k"][2])
+        c = _seat(model.init_cache(B, MAX_SEQ), tc)
+        n = torch.argmax(logits[:, :cfg.vocab_size], -1).to(
+            torch.int32)[:, None]
+        got = []
+        for _ in range(4):
+            n, c = model.decode_step(tp, c, n)
+            got.append(n.numpy())
+        np.testing.assert_array_equal(np.concatenate(got, 1),
+                                      np.concatenate(want, 1))
+        _close(c["layers"][0]["v"], cache["layers"]["v"][0])
+
+
+@pytest.mark.parametrize("arch", sorted(set(all_arch_names()) - set(ARCHS)))
+def test_other_families_are_refused(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+        get_model(get_smoke_config(arch), "cpu")
+
+
+def test_configs_are_the_published_ones():
+    cfg = get_config("qwen3-32b")
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+            cfg.vocab_size, cfg.padded_vocab, cfg.qk_norm, cfg.rope_theta) \
+        == (5120, 64, 8, 128, 25600, 151936, 152064, True, 1e6)
+    assert cfg.attn_impl == "cuda"
+    from repro.configs import get_config as jax_config
+    for arch in all_arch_names():
+        want = jax_config(arch).replace(attn_impl="cuda")
+        assert get_config(arch).__dict__ == want.__dict__, arch
+
+
+def test_model_needs_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(get_smoke_config("qwen3-32b"))
