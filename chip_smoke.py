@@ -12,8 +12,9 @@ csrc`` and then runs, in order:
 1. build     -- compile every kernel source (one nvcc each, in parallel);
 2. kernels   -- each kernel against its plain PyTorch version on the card:
                 the encode and read kernels exact, flash attention and
-                RMSNorm within f32 2e-5 / bf16 2e-2, at edge and full
-                sizes;
+                RMSNorm within f32 2e-5 / bf16 2e-2, the SSD chunk scan
+                (y and final state) within 5 times that, at edge and full
+                sizes and at every shape the serve runs give them;
 3. IOR       -- the write path: 32 ranks x 16,384 lseek+write iterations
                 (paper Listing 3, 1 MiB transfers to one shared file) as
                 ThreadComm ranks, finalized tree and flat on the ``cuda``
@@ -36,12 +37,18 @@ csrc`` and then runs, in order:
                 from a seeded generator, served by ``ServeEngine`` (4
                 prompts of 1,024 tokens, 32 new tokens each) on the kernel
                 path inside a ``session``; the trace must read back 31
-                ``serve_step`` records, and the same weights and prompts
-                run again on the plain ``"torch"`` attention path to
-                compare with; the qwen3-32b smoke model on the card must
-                give the CPU's logits and tokens;
-8. report    -- the kernels' launch counts from phases 3-6 and from the
-                serve run (each must be above 0) and their times at the
+                ``serve_step`` records, the model kernels must be launched
+                as often as the structure implies, and the same weights
+                and prompts run again on the plain ``"torch"`` attention
+                path to compare with; the qwen3-32b smoke model on the
+                card must give the CPU's logits and tokens;
+8. serve_ssm -- the same for the SSM family, mamba2-370m at full depth (48
+                layers), and the hybrid one, hymba-1.5b at full depth (32
+                layers), with 4 prompts of 2,048 tokens each; their plain
+                run flips both ``attn_impl`` and ``ssm_impl`` to
+                ``"torch"``;
+9. report    -- the kernels' launch counts from phases 3-6 and from the
+                serve runs (each must be above 0) and their times at the
                 shapes those phases gave them, as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -76,17 +83,43 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, NVIDIA data sheet
 CORE_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 rate, same source
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, same
 
-# the serve phase: qwen3-32b at its published widths, 16 of 64 layers
-SERVE_ARCH = "qwen3-32b"
-SERVE_LAYERS = 16
-SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 4, 1024, 32, 2048
-# prefill logits of the kernel path against the plain "torch" path,
-# relative L2 error: the paths differ by the bf16 rounding of p in every
-# attention, which the bf16 layers carry to the logits.  The 3-layer bf16
-# smoke model shows 1.2e-2 on the CPU; sqrt(16 / 3) times that is 2.8e-2
-SERVE_LOGITS_RTOL = 5e-2
+# the serve runs: each model at its published widths, bf16, random weights
+# from a CUDA generator seeded 0, SERVE_BATCH prompts (numpy seed 0) and
+# SERVE_NEW greedy tokens each; then the same weights and prompts on the
+# plain path that ``plain`` selects.  ``rtol`` bounds the relative L2
+# error of the prefill logits, kernel path against plain path.
+SERVE_BATCH, SERVE_NEW = 4, 32
+# ``f32_rtol``, where set, bounds the same comparison with f32 weights and
+# activations at the same width and depth.
+ServeSpec = collections.namedtuple(
+    "ServeSpec", "arch layers of prompt max_seq plain rtol f32_rtol")
+SERVE_SPECS = (
+    # 16 of 64 layers (one stage of four), to leave room for the plain
+    # run.  The paths differ by the bf16 rounding of p in every attention,
+    # which the bf16 layers carry to the logits: the 3-layer bf16 smoke
+    # model shows 1.2e-2 on the CPU, sqrt(16 / 3) times that is 2.8e-2
+    ServeSpec("qwen3-32b", 16, 64, 1024, 2048, {"attn_impl": "torch"}, 5e-2,
+              None),
+    # full depth, every model kernel but RMSNorm on its plain path.  The
+    # SSD paths take the same f32 sums in other orders: in f32 at full
+    # depth their logits agree within 3e-5 (relative L2), held here to
+    # 1e-3, while a wrong decay or state is off by O(1).  In bf16 every
+    # differing sum flips some y by one ulp (0.4%), and the random layers
+    # carry the flips on: the gap grows with depth, about 1.2e-3 (mamba2)
+    # and 1.7e-3 (hymba) a layer from the SSD alone, so 2e-3 a layer
+    # bounds mamba2; hymba's attention adds qwen3's 1.0e-3 a layer, so 3e-3
+    ServeSpec("mamba2-370m", 48, 48, 2048, 4096,
+              {"attn_impl": "torch", "ssm_impl": "torch"}, 2e-3 * 48, 1e-3),
+    ServeSpec("hymba-1.5b", 32, 32, 2048, 4096,
+              {"attn_impl": "torch", "ssm_impl": "torch"}, 3e-3 * 32, 1e-3),
+)
+SERVE_ARCH = SERVE_SPECS[0].arch   # rows 8 and 9 are measured at its shapes
+SSD_ARCH = SERVE_SPECS[1].arch     # row 10 at mamba2's
+MODEL_KERNELS = ("flash_attention", "rmsnorm", "ssd_scan")
 # tolerances of tests/test_kernels.py for kernel against plain version
+# (the SSD scan is held to 5 times these there, and here)
 FLOAT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL_SCALE = 5
 
 
 def log(msg: str) -> None:
@@ -194,7 +227,7 @@ def phase_build(build) -> float:
     return secs
 
 
-def phase_kernels(k) -> None:
+def phase_kernels(k, ssm_calls: dict) -> None:
     dev = torch.device("cuda")
 
     def same(got, want, what):
@@ -259,7 +292,7 @@ def phase_kernels(k) -> None:
                 require(int(codes.max()) >= 1 << 31,
                         f"digram_codes n={n}: no code passed 2^31")
         log(f"delta_zigzag_varint, histogram, digram_codes exact at n={n}")
-    model_kernels(k)
+    model_kernels(k, ssm_calls)
 
 
 def randn(shape, seed: int, dtype: torch.dtype) -> torch.Tensor:
@@ -267,24 +300,44 @@ def randn(shape, seed: int, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(x).to("cuda", dtype)
 
 
-def close_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+def close_err(got: torch.Tensor, want: torch.Tensor, what: str,
+              scale: float = 1) -> float:
     """Max abs error of ``got`` against ``want``; fails unless every
-    element is within FLOAT_TOL (atol + rtol * |want|)."""
+    element is within ``scale`` times FLOAT_TOL (atol + rtol * |want|)."""
     torch.cuda.synchronize()
     require(got.dtype == want.dtype and got.shape == want.shape,
             f"{what}: {got.dtype} {tuple(got.shape)} != {want.dtype} "
             f"{tuple(want.shape)}")
-    tol = FLOAT_TOL[want.dtype]
+    tol = FLOAT_TOL[want.dtype] * scale
     g, w = got.float(), want.float()
     require(bool(((g - w).abs() <= tol + tol * w.abs()).all()),
             f"{what}: kernel differs from plain beyond {tol}")
     return float((g - w).abs().max()) if g.numel() else 0.0
 
 
-def model_kernels(k) -> None:
+def ssm_serve_kernel_calls(s) -> dict:
+    """The flash-attention and RMSNorm calls of the SSM serve runs, from
+    their configurations: the prefill's attention (q shape, KV heads,
+    window; causal) and the SSD gate norm's input in the prefill (B, S,
+    nh, hd) and in decode (B, nh, hd)."""
+    calls = {"flash_attention": [], "rmsnorm": []}
+    for spec in SERVE_SPECS[1:]:
+        cfg = s.get_config(spec.arch)
+        if cfg.family != "ssm":
+            calls["flash_attention"].append(
+                ((SERVE_BATCH, spec.prompt, cfg.n_heads, cfg.hd),
+                 cfg.n_kv_heads, cfg.sliding_window))
+        calls["rmsnorm"] += [
+            ((SERVE_BATCH, spec.prompt, cfg.ssm_heads, cfg.ssm_head_dim),),
+            ((SERVE_BATCH, cfg.ssm_heads, cfg.ssm_head_dim),)]
+    return calls
+
+
+def model_kernels(k, ssm_calls: dict) -> None:
     """Flash attention and RMSNorm against their plain versions: bf16 and
     f32, GQA groups 1 and 8, causal, non-causal and windowed masks, prime
-    and ragged lengths, every supported head dim, the serve shapes."""
+    and ragged lengths, every supported head dim, the serve shapes (the
+    SSM serve runs' from ``ssm_calls``)."""
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for S, H, KVH, D in ((1, 8, 1, 128), (37, 8, 8, 16), (131, 8, 1, 32),
@@ -322,6 +375,75 @@ def model_kernels(k) -> None:
                     "flash_attention at the serve prefill shape")
     log(f"flash_attention at the serve prefill shape (4, 1024, 64, 128) "
         f"bf16 causal: max abs error {err:.3g}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, S, H, D), kvh, window in ssm_calls["flash_attention"]:
+            q = randn((B, S, H, D), 41, dtype)
+            kk = randn((B, S, kvh, D), 42, dtype)
+            v = randn((B, S, kvh, D), 43, dtype)
+            what = (f"flash_attention at the SSM serve shape q "
+                    f"{(B, S, H, D)}, {kvh} KV heads, causal, window "
+                    f"{window}, {dtype}")
+            err = close_err(k.fa.flash_attention(q, kk, v, window=window),
+                            k.fa_ref.flash_attention_ref(q, kk, v,
+                                                         window=window),
+                            what)
+            del q, kk, v
+            log(f"{what}: max abs error {err:.3g}")
+        for (shape,) in ssm_calls["rmsnorm"]:
+            x = randn(shape, 44, dtype)
+            w = torch.rand(shape[-1], generator=torch.Generator(
+                device="cuda").manual_seed(1), device="cuda")
+            err = close_err(k.rn.rmsnorm(x, w, eps=1e-5),
+                            k.rn_ref.rmsnorm_ref(x, w, eps=1e-5),
+                            f"rmsnorm {shape} {dtype}")
+            log(f"rmsnorm at the SSM serve gate-norm shape {shape} {dtype}: "
+                f"max abs error {err:.3g}")
+    torch.cuda.empty_cache()
+    ssd_kernel_checks(k)
+
+
+def ssd_inputs(B, nc, Q, nh, hd, ns, dtype, seed):
+    """x, b, c (``dtype``), dt in [0, 0.1) and da in (-0.5, 0] (f32), from
+    numpy seeds, on the card."""
+    rng = np.random.RandomState(seed)
+    dt = torch.from_numpy((rng.rand(B, nc, Q, nh) * 0.1).astype(np.float32))
+    da = torch.from_numpy((-rng.rand(B, nc, Q, nh) * 0.5).astype(np.float32))
+    return (randn((B, nc, Q, nh, hd), seed + 1, dtype),
+            randn((B, nc, Q, ns), seed + 2, dtype),
+            randn((B, nc, Q, ns), seed + 3, dtype), dt.cuda(), da.cuda())
+
+
+def ssd_check(k, args, what) -> float:
+    """The SSD kernel (with its final state) against its plain version."""
+    y, h = k.ssd.ssd_scan(*args, return_state=True)
+    y_ref, h_ref = k.ssd_ref.ssd_scan_chunked_ref(*args)
+    return max(close_err(y, y_ref, f"{what} y", SSD_TOL_SCALE),
+               close_err(h, h_ref, f"{what} state", SSD_TOL_SCALE))
+
+
+def ssd_kernel_checks(k) -> None:
+    """ssd_scan against its plain version: Q 1, 7, 100, 256 (tails of the
+    kernel's 64-row tiles), nc 1, 3, 8, (ns, hd) (16, 16) and (128, 64),
+    f32 and bf16, then both serve prefill shapes."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for Q, nc in ((1, 3), (7, 8), (100, 3), (256, 1), (256, 8)):
+            for ns, hd in ((16, 16), (128, 64)):
+                err = ssd_check(k, ssd_inputs(2, nc, Q, 3, hd, ns, dtype,
+                                              Q + nc + hd),
+                                f"ssd_scan Q={Q} nc={nc} ns={ns} hd={hd} "
+                                f"{dtype}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+    log(f"ssd_scan within {SSD_TOL_SCALE} x tolerance at Q 1..256, nc 1..8, "
+        f"(ns, hd) (16, 16) and (128, 64), y and final state (max abs "
+        f"error f32 {worst[torch.float32]:.3g}, bf16 "
+        f"{worst[torch.bfloat16]:.3g})")
+    for arch, shape in (("mamba2-370m", (4, 8, 256, 32, 64, 128)),
+                        ("hymba-1.5b", (4, 8, 256, 50, 64, 16))):
+        err = ssd_check(k, ssd_inputs(*shape, torch.bfloat16, 31),
+                        f"ssd_scan at the {arch} serve shape")
+        log(f"ssd_scan at the {arch} serve prefill shape (B, nc, Q, nh, hd, "
+            f"ns) = {shape} bf16: max abs error {err:.3g}")
 
 
 def bin_files(tdir: str) -> dict:
@@ -686,16 +808,29 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def phase_serve(s) -> dict:
-    """Serve qwen3-32b (16 layers, full widths) on the kernel path: a
-    warm-up, a timed run, then the main path -- launch counts set to 0
-    just before, read just after -- inside a ``session`` under the
-    profiler.  Then the plain ``"torch"`` path on the same weights and
-    prompts, and the smoke model on the card against the CPU."""
+def serve_launches(cfg, n_new: int) -> dict:
+    """Model-kernel launches a generate of ``n_new`` tokens must make: one
+    flash_attention per attention layer of the prefill, one ssd_scan per
+    SSD layer of the prefill, and per layer and token two rmsnorm for
+    QK-norm and one for the SSD gate norm."""
+    ssd = cfg.family == "ssm" or cfg.hybrid
+    return {"flash_attention": cfg.n_layers if cfg.family != "ssm" else 0,
+            "ssd_scan": cfg.n_layers if ssd else 0,
+            "rmsnorm": cfg.n_layers * n_new * (2 * cfg.qk_norm + ssd)}
+
+
+def phase_serve(s, spec: ServeSpec) -> dict:
+    """Serve ``spec.arch`` (``spec.layers`` layers, full widths) on the
+    kernel path: a warm-up, a timed run, then the main path -- launch
+    counts set to 0 just before, read just after -- inside a ``session``
+    under the profiler.  Then the plain path ``spec.plain`` selects on the
+    same weights and prompts, and the smoke model on the card against the
+    CPU."""
     from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda")
-    cfg = s.get_config(SERVE_ARCH).replace(n_layers=SERVE_LAYERS)
-    require(cfg.attn_impl == "cuda", "the kernel path must be the default")
+    cfg = s.get_config(spec.arch).replace(n_layers=spec.layers)
+    require(cfg.attn_impl == "cuda" and cfg.ssm_impl == "cuda",
+            "the kernel paths must be the defaults")
     t = time.monotonic()
     params = s.get_model(cfg, dev).init_params(
         torch.Generator(device=dev).manual_seed(0))
@@ -703,31 +838,36 @@ def phase_serve(s) -> dict:
     flat = s.flat_params(params)
     n_params = sum(x.numel() for x in flat.values())
     n_bytes = sum(x.numel() * x.element_size() for x in flat.values())
-    log(f"serve: {cfg.name}, {cfg.n_layers} of 64 layers at d {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x {cfg.hd}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
-        f"{cfg.param_dtype}: {n_params} parameters, {n_bytes} B, initialised "
-        f"in {time.monotonic() - t:.2f} s")
+    log(f"serve: {cfg.name}, {cfg.n_layers} of {spec.of} layers at d "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x "
+        f"{cfg.hd}, window {cfg.sliding_window}, d_ff {cfg.d_ff}, SSD "
+        f"{cfg.ssm_heads if cfg.ssm_state else 0} heads x {cfg.ssm_head_dim}"
+        f", state {cfg.ssm_state}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}), {cfg.param_dtype}: {n_params} parameters, "
+        f"{n_bytes} B, initialised in {time.monotonic() - t:.2f} s")
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "param_bytes": n_bytes}
     batch = {"tokens": np.random.RandomState(0).randint(
-        0, cfg.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)}
-    eng = s.ServeEngine(cfg, params, max_seq=SERVE_MAX_SEQ, device=dev)
+        0, cfg.vocab_size, size=(SERVE_BATCH, spec.prompt)).astype(np.int32)}
+    eng = s.ServeEngine(cfg, params, max_seq=spec.max_seq, device=dev)
     eng.generate(batch, 2)                 # warm-up: cuBLAS, first loads
     toks = eng.generate(batch, SERVE_NEW)  # timed, neither traced nor profiled
     st = dict(eng.stats)
     n_tok = SERVE_BATCH * SERVE_NEW
-    res = {"prefill_ms": st["prefill_s"] * 1e3,
-           "decode_ms_per_step": st["decode_s"] * 1e3 / st["decode_steps"],
-           "tokens_per_s": n_tok / (st["prefill_s"] + st["decode_s"]),
-           "decode_tokens_per_s": SERVE_BATCH * st["decode_steps"]
-           / st["decode_s"]}
-    log(f"serve (kernel path): prefill of {SERVE_BATCH} x {SERVE_PROMPT} "
-        f"tokens {res['prefill_ms']:.2f} ms, decode "
+    res.update({"prefill_ms": st["prefill_s"] * 1e3,
+                "decode_ms_per_step": st["decode_s"] * 1e3
+                / st["decode_steps"],
+                "tokens_per_s": n_tok / (st["prefill_s"] + st["decode_s"]),
+                "decode_tokens_per_s": SERVE_BATCH * st["decode_steps"]
+                / st["decode_s"]})
+    log(f"serve {cfg.name} (kernel path): prefill of {SERVE_BATCH} x "
+        f"{spec.prompt} tokens {res['prefill_ms']:.2f} ms, decode "
         f"{res['decode_ms_per_step']:.3f} ms per step of {SERVE_BATCH} "
         f"tokens, {res['tokens_per_s']:.1f} "
         f"tokens/s over {n_tok} generated ({res['decode_tokens_per_s']:.1f} "
         f"tokens/s in decode)")
 
-    tdir = os.path.join(WORK, "serve", "trace")
+    tdir = os.path.join(WORK, "serve", cfg.name, "trace")
     shutil.rmtree(tdir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     s.build.reset_launches()
@@ -743,21 +883,24 @@ def phase_serve(s) -> dict:
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
     busy = device_busy_ms(prof)
     res["traced_s"], res["busy_ms"] = secs, busy
+    res["idle_share"] = 1 - busy / (secs * 1e3)
     top = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
-    log("serve main path, device time by kernel: " + "; ".join(
+    res["top_kernels"] = [[e.key[:70], e.self_device_time_total / 1e3,
+                           e.count] for e in top]
+    log(f"serve {cfg.name} main path, device time by kernel: " + "; ".join(
         f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
         for e in top))
-    log(f"serve main path (traced, profiled): {secs:.3f} s, prefill "
-        f"{eng.stats['prefill_s'] * 1e3:.2f} ms, decode "
+    log(f"serve {cfg.name} main path (traced, profiled): {secs:.3f} s, "
+        f"prefill {eng.stats['prefill_s'] * 1e3:.2f} ms, decode "
         f"{eng.stats['decode_s'] * 1e3:.2f} ms; device busy {busy:.3f} ms "
-        f"(idle share {1 - busy / (secs * 1e3):.6f}); max memory allocated "
+        f"(idle share {res['idle_share']:.6f}); max memory allocated "
         f"{res['peak_bytes']} B; launches {launches}")
     require(traced.shape == (SERVE_BATCH, SERVE_NEW)
             and int(traced.min()) >= 0
             and int(traced.max()) < cfg.vocab_size,
             f"serve: tokens of shape {traced.shape} or out of the vocab")
-    log(f"serve: traced run gave the timed run's tokens: "
+    log(f"serve {cfg.name}: traced run gave the timed run's tokens: "
         f"{bool(np.array_equal(traced, toks))}")
     reader = s.TraceReader(tdir)
     steps = [r.arg("step_idx") for r in reader.iter_records(0)
@@ -765,45 +908,63 @@ def phase_serve(s) -> dict:
     require(steps == list(range(SERVE_NEW - 1)),
             f"serve trace: {len(steps)} serve_step records, want "
             f"{SERVE_NEW - 1}")
-    require(launches.get("flash_attention") == SERVE_LAYERS,
-            f"flash_attention launched {launches.get('flash_attention')} "
-            f"times, want one per layer of the prefill ({SERVE_LAYERS})")
-    require(launches.get("rmsnorm") == 2 * SERVE_LAYERS * SERVE_NEW,
-            f"rmsnorm launched {launches.get('rmsnorm')} times, want q and k "
-            f"of every layer for every token ({2 * SERVE_LAYERS * SERVE_NEW})")
-    log(f"serve trace reads back {len(steps)} serve_step records")
+    for name, want in serve_launches(cfg, SERVE_NEW).items():
+        require(launches.get(name, 0) == want,
+                f"serve {cfg.name}: {name} launched {launches.get(name, 0)} "
+                f"times, want {want}")
+    log(f"serve {cfg.name} trace reads back {len(steps)} serve_step records;"
+        f" model kernel launches as the structure implies: "
+        f"{serve_launches(cfg, SERVE_NEW)}")
 
     with torch.inference_mode():
         lg_kernel, _ = s.get_model(cfg, dev).prefill(params, batch)
-        tcfg = cfg.replace(attn_impl="torch")
+        tcfg = cfg.replace(**spec.plain)
         lg_plain, _ = s.get_model(tcfg, dev).prefill(params, batch)
     require(bool(torch.isfinite(lg_kernel).all()), "serve: logits not finite")
     rel = float((lg_kernel - lg_plain).norm() / lg_plain.norm())
     res["logits_rel_err"] = rel
     res["logits_max_abs_err"] = float((lg_kernel - lg_plain).abs().max())
-    require(rel <= SERVE_LOGITS_RTOL,
-            f"serve: prefill logits of the kernel and torch paths differ by "
-            f"{rel:.3g} (relative L2), over {SERVE_LOGITS_RTOL}")
-    eng_t = s.ServeEngine(tcfg, params, max_seq=SERVE_MAX_SEQ, device=dev)
+    require(rel <= spec.rtol,
+            f"serve {cfg.name}: prefill logits of the kernel and plain "
+            f"paths differ by {rel:.3g} (relative L2), over {spec.rtol}")
+    eng_t = s.ServeEngine(tcfg, params, max_seq=spec.max_seq, device=dev)
     toks_t = eng_t.generate(batch, SERVE_NEW)
-    res["torch_prefill_ms"] = eng_t.stats["prefill_s"] * 1e3
-    res["torch_decode_ms_per_step"] = (eng_t.stats["decode_s"] * 1e3
+    res["plain_prefill_ms"] = eng_t.stats["prefill_s"] * 1e3
+    res["plain_decode_ms_per_step"] = (eng_t.stats["decode_s"] * 1e3
                                        / eng_t.stats["decode_steps"])
     same = toks == toks_t
     prefix = [int(np.argmin(row)) if not row.all() else SERVE_NEW
               for row in same]
     res["tokens_agree"] = int(same.sum())
-    log(f"serve: prefill logits kernel vs torch path: relative L2 {rel:.3g}"
-        f" (limit {SERVE_LOGITS_RTOL}), max abs "
+    log(f"serve {cfg.name}: prefill logits kernel vs plain path "
+        f"({spec.plain}): relative L2 {rel:.3g} (limit {spec.rtol}), max abs "
         f"{res['logits_max_abs_err']:.3g}, max |logit| "
         f"{float(lg_plain.abs().max()):.3g}; generated tokens that agree: "
         f"{res['tokens_agree']} of {n_tok}, common prefix per sequence "
-        f"{prefix}; torch path prefill {res['torch_prefill_ms']:.2f} ms, "
-        f"decode {res['torch_decode_ms_per_step']:.3f} ms per step")
+        f"{prefix}; plain path prefill {res['plain_prefill_ms']:.2f} ms, "
+        f"decode {res['plain_decode_ms_per_step']:.3f} ms per step")
     del params, eng, eng_t, flat, lg_kernel, lg_plain
     torch.cuda.empty_cache()
+    if spec.f32_rtol is not None:
+        c32 = cfg.replace(dtype="float32", param_dtype="float32")
+        p32 = s.get_model(c32, dev).init_params(
+            torch.Generator(device=dev).manual_seed(0))
+        with torch.inference_mode():
+            lg_kernel, _ = s.get_model(c32, dev).prefill(p32, batch)
+            lg_plain, _ = s.get_model(c32.replace(**spec.plain),
+                                      dev).prefill(p32, batch)
+        rel = float((lg_kernel - lg_plain).norm() / lg_plain.norm())
+        res["f32_logits_rel_err"] = rel
+        require(rel <= spec.f32_rtol,
+                f"serve {cfg.name} in f32: prefill logits of the kernel and "
+                f"plain paths differ by {rel:.3g}, over {spec.f32_rtol}")
+        log(f"serve {cfg.name} in f32 at the same width and depth: prefill "
+            f"logits kernel vs plain path, relative L2 {rel:.3g} (limit "
+            f"{spec.f32_rtol})")
+        del p32, lg_kernel, lg_plain
+        torch.cuda.empty_cache()
 
-    scfg = s.get_smoke_config(SERVE_ARCH)
+    scfg = s.get_smoke_config(spec.arch)
     sp = s.get_model(scfg, "cpu").init_params(torch.Generator().manual_seed(0))
     sb = {"tokens": np.random.RandomState(0).randint(
         0, scfg.vocab_size, size=(2, 37)).astype(np.int32)}
@@ -816,9 +977,8 @@ def phase_serve(s) -> dict:
     got = s.ServeEngine(scfg, to_device(sp, dev), max_seq=64,
                         device=dev).generate(sb, 8)
     require(np.array_equal(got, want), "smoke model: card tokens != CPU's")
-    log(f"smoke {SERVE_ARCH} (f32, head dim {scfg.hd}) on the card: prefill "
-        f"logits within {err:.3g} of the CPU's plain path, 8 greedy tokens "
-        f"identical")
+    log(f"smoke {spec.arch} (f32) on the card: prefill logits within "
+        f"{err:.3g} of the CPU's plain path, 8 greedy tokens identical")
     return res
 
 
@@ -1022,21 +1182,51 @@ def kernel_report(k, p, shapes: dict, launches: dict,
 
 FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 RN_SRC = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 FA_TPU = "src/repro/kernels/flash_attention/flash_attention.py:72"
 RN_TPU = "src/repro/kernels/rmsnorm/rmsnorm.py:25"
+SSD_TPU = "src/repro/kernels/ssd_scan/ssd_scan.py:63"
 
 
-def model_kernel_report(k, shapes: dict, launches: dict, kv_heads: int
-                        ) -> list:
+def ssd_serve_shape(s, arch: str) -> tuple:
+    """(B, nc, Q, nh, hd, ns) of the SSD scans of ``arch``'s serve run:
+    the chunk length as ``models.ssm.ssd_apply`` chooses it."""
+    cfg = s.get_config(arch)
+    spec = next(sp for sp in SERVE_SPECS if sp.arch == arch)
+    Q = min(cfg.ssm_chunk, spec.prompt)
+    while spec.prompt % Q:
+        Q -= 1
+    return (SERVE_BATCH, spec.prompt // Q, Q, cfg.ssm_heads,
+            cfg.ssm_head_dim, cfg.ssm_state)
+
+
+def ssd_work(shape: tuple, elt: int) -> tuple:
+    """(bytes, operations) of one SSD scan of (B, nc, Q, nh, hd, ns) with
+    x, b and c of ``elt`` bytes.  Bytes: x, b, c, dt, da in, y and the f32
+    state out.  Operations: the causal triangle the function needs, as
+    the flash row counts its visible pairs -- scores (ns) and weights
+    times x (hd) for each of a chunk's Q(Q+1)/2 pairs q >= p, then c . h
+    and the state update per (q, state entry); 2 per multiply-add."""
+    B, nc, Q, nh, hd, ns = shape
+    nbytes = (2 * elt * B * nc * Q * nh * hd + 2 * elt * B * nc * Q * ns
+              + 2 * 4 * B * nc * Q * nh + 4 * B * nh * ns * hd)
+    ops = B * nc * nh * (Q * (Q + 1) * (ns + hd) + 4 * Q * ns * hd)
+    return nbytes, ops
+
+
+def model_kernel_report(k, s, shapes: dict, launches: dict) -> list:
     """Rows of the kernels line for flash attention and RMSNorm at the
-    largest shapes the serve run gave them (bf16, causal), with the launch
-    counts of the serve main path."""
+    largest shapes the qwen3-32b serve run gave them (bf16, causal), and
+    for the SSD scan at the mamba2-370m serve prefill's shape (bf16), with
+    the launch counts of those runs' main paths (``launches``: arch ->
+    counts; every run's count is kept in ``launches_by_run``)."""
     import torch.nn.functional as F
 
     def top(name):
         require(bool(shapes.get(name)), f"{name} saw no main-path call")
         return max(shapes[name], key=lambda s: int(np.prod(s)))
 
+    kv_heads = s.get_config(SERVE_ARCH).n_kv_heads
     B, S, H, D = top("flash_attention")
     bf = torch.bfloat16
     q = randn((B, S, H, D), 21, bf)
@@ -1046,9 +1236,14 @@ def model_kernel_report(k, shapes: dict, launches: dict, kv_heads: int
     w = torch.rand(x.shape[-1], generator=torch.Generator(
         device="cuda").manual_seed(25), device="cuda")
     pairs = S * (S + 1) // 2       # causal, Sq == Skv: visible (q, k) pairs
+    sB, snc, sQ, snh, shd, sns = ssd_serve_shape(s, SSD_ARCH)
+    require((sB, snc, sQ, snh, shd) in shapes.get("ssd_scan", {}),
+            f"ssd_scan saw no call at the {SSD_ARCH} serve shape")
+    ssd_args = ssd_inputs(sB, snc, sQ, snh, shd, sns, bf, 26)
     # name: (kernel, plain version, source, TPU kernel, device kernel name,
     #        bytes moved, operations, peak rate of their type, library
-    #        call, shapes, timing iterations)
+    #        call or None, shapes, timing iterations, run of the launches,
+    #        tolerance scale)
     specs = {
         "flash_attention": (
             lambda: k.fa.flash_attention(q, kk, v),
@@ -1059,31 +1254,44 @@ def model_kernel_report(k, shapes: dict, launches: dict, kv_heads: int
             lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, enable_gqa=True).transpose(1, 2),
-            [list(q.shape), list(kk.shape)], 20),
+            [list(q.shape), list(kk.shape)], 20, SERVE_ARCH, 1),
         "rmsnorm": (
             lambda: k.rn.rmsnorm(x, w, eps=1e-6),
             lambda: k.rn_ref.rmsnorm_ref(x, w, eps=1e-6), RN_SRC, RN_TPU,
             "rmsnorm_kernel", 2 * 2 * x.numel() + 4 * w.numel(),
             4 * x.numel(), CORE_OPS_PER_S,
             lambda: F.rms_norm(x, (x.shape[-1],), w.to(bf), 1e-6),
-            [list(x.shape)], 200),
+            [list(x.shape)], 200, SERVE_ARCH, 1),
+        "ssd_scan": (
+            lambda: k.ssd.ssd_scan(*ssd_args, return_state=True)[0],
+            lambda: k.ssd_ref.ssd_scan_chunked_ref(*ssd_args)[0], SSD_SRC,
+            SSD_TPU, "ssd_scan_kernel",
+            *ssd_work((sB, snc, sQ, snh, shd, sns), 2),
+            BF16_TENSOR_OPS_PER_S, None,
+            [[sB, snc, sQ, snh, shd], [sB, snc, sQ, sns]], 20, SSD_ARCH,
+            SSD_TOL_SCALE),
     }
     rows = []
     for name, (kern, plain, source, replaces, kname, nbytes, nops, peak,
-               library, shape, iters) in specs.items():
+               library, shape, iters, run, scale) in specs.items():
         ref = plain()
-        err = close_err(kern(), ref, f"{name} at the serve shape")
-        close_err(library(), ref, f"{name}: library call")
+        err = close_err(kern(), ref, f"{name} at the serve shape", scale)
+        library_ms = None
+        if library is not None:
+            close_err(library(), ref, f"{name}: library call")
+            library_ms = cuda_ms(library, iters=iters)
         ms = cuda_ms(kern, iters=iters)
         device_ms = device_kernel_ms(kern, kname)
         device_cold_ms = device_kernel_ms(kern, kname, cold=True)
         plain_ms = cuda_ms(plain, iters=max(iters // 4, 5))
-        library_ms = cuda_ms(library, iters=iters)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / peak * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches.get(name, 0),
+            "replaces": replaces, "launches": launches[run].get(name, 0),
+            "launches_run": run,
+            "launches_by_run": {a: c.get(name, 0)
+                                for a, c in launches.items()},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1093,9 +1301,27 @@ def model_kernel_report(k, shapes: dict, launches: dict, kv_heads: int
         })
         log(f"{name} at {shape} bf16: kernel {ms:.4f} ms per call (device "
             f"{device_ms} ms, L2 flushed {device_cold_ms} ms), plain "
-            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+            f"{plain_ms:.4f} ms, library {library_ms} ms, bound "
             f"{rows[-1]['bound_ms']:.6f} ms by {rows[-1]['bound_by']} "
-            f"({nbytes} B, {nops} operations), max abs error {err:.3g}")
+            f"({nbytes} B, {nops} operations; at the 67 TFLOP/s f32 "
+            f"CUDA-core rate {nops / CORE_OPS_PER_S * 1e3:.4f} ms), max abs "
+            f"error {err:.3g}")
+    # the SSD scan at hymba's serve shape too (ns 16, 50 heads)
+    hshape = ssd_serve_shape(s, "hymba-1.5b")
+    hargs = ssd_inputs(*hshape, bf, 27)
+    hbytes, hops = ssd_work(hshape, 2)
+    rows[-1]["other_shape"] = {"arch": "hymba-1.5b", "shape": list(hshape),
+                               "ms": cuda_ms(lambda: k.ssd.ssd_scan(
+                                   *hargs, return_state=True), iters=20),
+                               "device_ms": device_kernel_ms(
+                                   lambda: k.ssd.ssd_scan(
+                                       *hargs, return_state=True),
+                                   "ssd_scan_kernel"),
+                               "bound_ms": max(
+                                   hbytes / HBM_BYTES_PER_S,
+                                   hops / BF16_TENSOR_OPS_PER_S) * 1e3}
+    log(f"ssd_scan at the hymba-1.5b serve shape {hshape} bf16: "
+        f"{rows[-1]['other_shape']}")
     return rows
 
 
@@ -1132,6 +1358,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm import ref as rn_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.traceserve import QUERY_FAMILIES, TraceService
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import get_model
@@ -1139,12 +1367,14 @@ def main() -> int:
     from repro_torch.serve import ServeEngine
 
     k = SimpleNamespace(de=de_ops, de_ref=de_ref, gs=gs_ops, gs_ref=gs_ref,
-                        fa=fa_ops, fa_ref=fa_ref, rn=rn_ops, rn_ref=rn_ref)
+                        fa=fa_ops, fa_ref=fa_ref, rn=rn_ops, rn_ref=rn_ref,
+                        ssd=ssd_ops, ssd_ref=ssd_ref)
     wrappers = ((de_ops, "delta_zigzag"), (de_ops, "uvarint_encode64"),
                 (de_ops, "fit_columns"), (gs_ops, "row_boundaries"),
                 (de_ops, "delta_zigzag_varint"), (gs_ops, "histogram"),
                 (gs_ops, "digram_codes"))
-    model_wrappers = ((fa_ops, "flash_attention"), (rn_ops, "rmsnorm"))
+    model_wrappers = ((fa_ops, "flash_attention"), (rn_ops, "rmsnorm"),
+                      (ssd_ops, "ssd_scan"))
     p = SimpleNamespace(eb=eb, recorder=recorder, posix=posix,
                         Recorder=recorder.Recorder,
                         RecorderConfig=recorder.RecorderConfig,
@@ -1175,13 +1405,14 @@ def main() -> int:
 
     with Phase("build"):
         build_s = phase_build(_build)
+    ssm_calls = ssm_serve_kernel_calls(srv)
     with Phase("kernels"):
-        phase_kernels(k)
+        phase_kernels(k, ssm_calls)
 
-    # the main paths: the tracer's (phases 3-6) and the serving run of
-    # phase 7; counts start at 0 just before each and are read just after
-    # (phase_serve does so around its traced run).  A shim records the
-    # shape each wrapper is called with (the wrapper itself counts its
+    # the main paths: the tracer's (phases 3-6) and the serving runs of
+    # phases 7-8; counts start at 0 just before each and are read just
+    # after (phase_serve does so around its traced run).  A shim records
+    # the shape each wrapper is called with (the wrapper itself counts its
     # launches).
     shapes = collections.defaultdict(collections.Counter)
     lock = threading.Lock()
@@ -1207,27 +1438,39 @@ def main() -> int:
             read_inputs = phase_read(p)
         torch.cuda.synchronize()
         launches = _build.launch_counts()
+        serves = {}
         with Phase("serve"):
-            serve = phase_serve(srv)
+            serves[SERVE_ARCH] = phase_serve(srv, SERVE_SPECS[0])
+        with Phase("serve_ssm"):
+            for spec in SERVE_SPECS[1:]:
+                serves[spec.arch] = phase_serve(srv, spec)
     finally:
         for mod, name, real in originals:
             setattr(mod, name, real)
-    log(f"main-path launches, phases 3-6: {launches}; serve run: "
-        f"{serve['launches']}")
+    serve_counts = {a: r["launches"] for a, r in serves.items()}
+    log(f"main-path launches, phases 3-6: {launches}; serve runs: "
+        f"{serve_counts}")
     for _mod, name in wrappers:
         require(launches.get(name, 0) > 0,
                 f"{name} was not launched on the main path")
         log(f"{name} main-path shapes: {dict(shapes[name].most_common(4))}")
     for _mod, name in model_wrappers:
-        require(serve["launches"].get(name, 0) > 0,
-                f"{name} was not launched on the serve main path")
-        log(f"{name} serve shapes: {dict(shapes[name].most_common(4))}")
+        runs = [a for a, c in serve_counts.items() if c.get(name, 0) > 0]
+        require(bool(runs), f"{name} was not launched on a serve main path")
+        log(f"{name} launched in the serve runs of {runs}; shapes: "
+            f"{dict(shapes[name].most_common(4))}")
+    for name, calls in ssm_calls.items():
+        for call in calls:
+            require(call[0] in shapes[name],
+                    f"{name}: the kernels phase checked {call[0]}, which "
+                    f"no serve run gave it")
+    log("serve summary: " + json.dumps(
+        {a: {k: v for k, v in r.items() if k != "top_kernels"}
+         for a, r in serves.items()}))
 
     with Phase("report"):
         rows = kernel_report(k, p, shapes, launches, read_inputs)
-        rows += model_kernel_report(
-            k, shapes, serve["launches"],
-            get_config(SERVE_ARCH).n_kv_heads)
+        rows += model_kernel_report(k, srv, shapes, serve_counts)
     shutil.rmtree(WORK, ignore_errors=True)
     log(f"total {time.monotonic() - t_all:.1f} s (build {build_s:.2f} s)")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -10,7 +10,7 @@ is never loaded.  Compilation writes to a temporary name and renames it
 into place, so concurrent builders never see a half-written library.
 
 The wrappers (``delta_encode/ops.py``, ``grammar_stats/ops.py``,
-``flash_attention/ops.py``, ``rmsnorm/ops.py``) call
+``flash_attention/ops.py``, ``rmsnorm/ops.py``, ``ssd_scan/ops.py``) call
 :func:`launch`, which raises on a nonzero CUDA error and adds one to the
 kernel's launch count -- the count that shows a run really went through
 the kernel.  ThreadComm ranks launch from several threads, so the counts
@@ -33,7 +33,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("delta_encode", "grammar_stats", "flash_attention", "rmsnorm")
+SOURCES = ("delta_encode", "grammar_stats", "flash_attention", "rmsnorm",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

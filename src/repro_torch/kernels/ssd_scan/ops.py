@@ -1,0 +1,106 @@
+"""Wrapper of the SSD chunk-scan CUDA kernel (``csrc/ssd_scan.cu``).
+
+``ssd_scan`` replaces ``ssd_scan_pallas`` of the JAX package
+(``kernels/ssd_scan/ssd_scan.py:63``) behind the same chunked layout as
+its ``ops.ssd_scan``: x (B, nc, Q, nh, hd), b and c (B, nc, Q, ns), dt and
+da (B, nc, Q, nh).  With ``return_state=True`` it also returns the f32
+state after the last chunk, (B, nh, ns, hd), which a prefill keeps as the
+decode cache (the Pallas kernel writes only y).  It checks its inputs,
+runs the plain PyTorch version (``ref.py``) when they lie on the CPU, and
+otherwise launches the kernel on the current stream -- there is no
+fallback for CUDA tensors: the kernel runs or the call raises.  The
+kernel reads x, b and c through their strides (the model passes column
+slices of the convolution's output), so no copies are made; dt and da
+must be contiguous.
+
+At the mamba2-370m serve prefill (B 4, nc 8, Q 256, nh 32, hd 64,
+ns 128) the function moves 77.6 MB and needs 21.5 GFLOP (the causal
+triangle of each chunk), so the bytes bound it, narrowly, on an H100.
+This first version runs f32 FMAs on the CUDA cores; its time is in
+``PERF.md``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple, Union
+
+import torch
+
+from .. import _build
+from .ref import ssd_scan_chunked_ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+_SIGNATURES = {"ssd_scan": [_P] * 7 + [_I] * 17 + [_P]}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128      # hd: the kernel's widest register tile
+MAX_STATE = 128         # ns: shared memory holds the (ns, hd) state
+MAX_CHUNK = 4096        # Q: shared memory holds the chunk's decay sums
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.library("ssd_scan", _SIGNATURES)
+
+
+def _check(x, b, c, dt, da) -> None:
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+        if t.dim() != (5 if name == "x" else 4):
+            want = "(B, nc, Q, nh, hd)" if name == "x" else "(B, nc, Q, ns)"
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; want "
+                             f"{want}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride in its last "
+                             f"dimension")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"x, b, c dtypes differ: {x.dtype}, {b.dtype}, "
+                        f"{c.dtype}")
+    for name, t in (("dt", dt), ("da", da)):
+        _build.check(t, name, torch.float32, 4)
+    if not (x.device == b.device == c.device == dt.device == da.device):
+        raise ValueError("x, b, c, dt and da must lie on one device")
+    B, nc, Q, nh, hd = x.shape
+    ns = b.shape[-1]
+    if b.shape != c.shape or tuple(b.shape[:3]) != (B, nc, Q):
+        raise ValueError(f"b {tuple(b.shape)} and c {tuple(c.shape)} do not "
+                         f"fit x {tuple(x.shape)}")
+    if dt.shape != da.shape or tuple(dt.shape) != (B, nc, Q, nh):
+        raise ValueError(f"dt {tuple(dt.shape)} and da {tuple(da.shape)} "
+                         f"must be (B, nc, Q, nh) = {(B, nc, Q, nh)}")
+    if not (1 <= hd <= MAX_HEAD_DIM and 1 <= ns <= MAX_STATE
+            and Q <= MAX_CHUNK):
+        raise ValueError(f"hd={hd}, ns={ns}, Q={Q}: the kernel takes "
+                         f"1 <= hd <= {MAX_HEAD_DIM}, 1 <= ns <= "
+                         f"{MAX_STATE}, Q <= {MAX_CHUNK}")
+
+
+def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+             dt: torch.Tensor, da: torch.Tensor, *,
+             return_state: bool = False
+             ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """x (B, nc, Q, nh, hd), b and c (B, nc, Q, ns) in float32 or
+    bfloat16; dt, da (B, nc, Q, nh) float32 -> y (x's shape and dtype), and
+    with ``return_state`` also the f32 state (B, nh, ns, hd) after the
+    last chunk."""
+    _check(x, b, c, dt, da)
+    if x.device.type == "cpu":
+        y, h = ssd_scan_chunked_ref(x, b, c, dt, da)
+        return (y, h) if return_state else y
+    B, nc, Q, nh, hd = x.shape
+    ns = b.shape[-1]
+    if B > 65535:
+        raise ValueError(f"B={B} must be <= 65535 (grid)")
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    h = torch.zeros((B, nh, ns, hd), dtype=torch.float32, device=x.device) \
+        if return_state else None
+    if x.numel():
+        _build.launch(_lib(), "ssd_scan", x.device, _build.ptr(x),
+                      _build.ptr(b), _build.ptr(c), _build.ptr(dt),
+                      _build.ptr(da), _build.ptr(y),
+                      _build.ptr(h) if h is not None else None,
+                      B, nc, Q, nh, hd, ns, *x.stride()[:4],
+                      *b.stride()[:3], *c.stride()[:3], DTYPE_CODES[x.dtype])
+    return (y, h) if return_state else y

@@ -1,0 +1,85 @@
+"""Plain PyTorch versions of the SSD chunk-scan kernel.
+
+``ssd_scan_chunked_ref`` is the kernel's function in its chunked form,
+the arithmetic of the JAX package's ``_ssd_kernel``
+(``kernels/ssd_scan/ssd_scan.py:25-60``) and of its model's
+``chunk_step`` loop (``models/ssm.py:110-137``) for every (batch, head) at
+once, and also returns the state after the last chunk.  The wrapper in
+``ops.py`` runs it for tensors on the CPU, the models'
+``ssm_impl="torch"`` path runs it on any device, and ``chip_smoke.py``
+holds the CUDA kernel against it on the card.
+
+``ssd_scan_token_ref`` is the token-by-token recurrence, a port of the JAX
+package's oracle ``ssd_scan_ref`` (``kernels/ssd_scan/ref.py:10``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def ssd_scan_chunked_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                         dt: torch.Tensor, da: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, nc, Q, nh, hd); b, c (B, nc, Q, ns); dt, da (B, nc, Q, nh) ->
+    (y with x's shape and dtype, the f32 state (B, nh, ns, hd) after the
+    last chunk).  Per chunk, with cs the cumulative sum of da:
+
+      y[q] = exp(cs_q) c_q . h
+             + sum_{p <= q} (c_q . b_p) exp(cs_q - cs_p) dt_p x_p
+      h'   = exp(cs_Q) h  +  sum_q b_q (outer) dt_q exp(cs_Q - cs_q) x_q
+
+    all in f32.  The decay above the diagonal (q < p) may overflow to inf;
+    it is selected away, never multiplied by 0."""
+    B, nc, Q, nh, hd = x.shape
+    ns = b.shape[-1]
+    dev = x.device
+    h = torch.zeros((B, nh, ns, hd), dtype=torch.float32, device=dev)
+    y = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
+    for ci in range(nc):
+        xb = x[:, ci].float().permute(0, 2, 1, 3)        # (B, nh, Q, hd)
+        bb = b[:, ci].float()                            # (B, Q, ns)
+        cb = c[:, ci].float()                            # (B, Q, ns)
+        dtb = dt[:, ci].float().transpose(1, 2)          # (B, nh, Q)
+        cs = torch.cumsum(da[:, ci].float(), dim=1).transpose(1, 2)
+        tot = cs[..., -1:]                               # (B, nh, 1)
+        y_inter = torch.exp(cs)[..., None] * torch.einsum(
+            "bqs,bhsd->bhqd", cb, h)
+        scores = (cb @ bb.transpose(1, 2))[:, None]      # (B, 1, Q, Q)
+        ldecay = torch.exp(cs[..., :, None] - cs[..., None, :])
+        w = torch.where(causal, scores * ldecay * dtb[..., None, :], 0.0)
+        y_intra = w @ xb                                 # (B, nh, Q, hd)
+        y[:, ci] = (y_inter + y_intra).permute(0, 2, 1, 3).to(x.dtype)
+        sdecay = (dtb * torch.exp(tot - cs))[..., None] * xb
+        h = torch.exp(tot)[..., None] * h + torch.einsum(
+            "bqs,bhqd->bhsd", bb, sdecay)
+    return y, h
+
+
+def ssd_scan_token_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                       dt: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
+    """Token-by-token SSD recurrence (the definitional form):
+
+       h_t = exp(da_t) h_{t-1} + dt_t * b_t (outer) x_t
+       y_t = c_t . h_t
+
+    x (B, nc, Q, nh, hd); b, c (B, nc, Q, ns); dt, da (B, nc, Q, nh).
+    """
+    B, nc, Q, nh, hd = x.shape
+    ns = b.shape[-1]
+    T = nc * Q
+    xf = x.reshape(B, T, nh, hd).float()
+    bf = b.reshape(B, T, ns).float()
+    cf = c.reshape(B, T, ns).float()
+    dtf = dt.reshape(B, T, nh).float()
+    daf = da.reshape(B, T, nh).float()
+    h = torch.zeros((B, nh, ns, hd), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(T):
+        h = torch.exp(daf[:, t])[..., None, None] * h + torch.einsum(
+            "bs,bh,bhd->bhsd", bf[:, t], dtf[:, t], xf[:, t])
+        ys.append(torch.einsum("bs,bhsd->bhd", cf[:, t], h))
+    return torch.stack(ys, dim=1).reshape(x.shape).to(x.dtype)

@@ -4,8 +4,12 @@ tokens/s; optionally trace the serving loop with the port's Recorder.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \\
         --smoke --device cpu --batch 4 --prompt-len 32 --new-tokens 32
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+        --smoke --device cpu
+
 Runs on the card unless ``--device cpu`` is given; without a card and
-without ``--device cpu`` it fails.  Only the dense family is ported.
+without ``--device cpu`` it fails.  The dense, SSM (mamba2-370m) and
+hybrid (hymba-1.5b) families are ported; the others are refused.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 on the
 chosen device; prompts come from numpy seed 0.
 """
@@ -30,7 +34,8 @@ from ..serve import ServeEngine
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
-        description="Greedy serving of a dense model with the port")
+        description="Greedy serving of a dense, SSM or hybrid model with "
+                    "the port")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced smoke configuration")

@@ -1,4 +1,5 @@
-"""Model API of the port: the dense decoder family, on the card by default.
+"""Model API of the port: the dense, SSM and hybrid decoder families, on
+the card by default.
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` bound to one device; its
 entry points take and return tensors on that device.  Without a CUDA card
@@ -18,8 +19,6 @@ from . import lm
 _NOT_PORTED = (
     (lambda c: c.n_encoder_layers > 0, "encoder-decoder (seamless)"),
     (lambda c: c.family == "vlm", "the VLM backbone (llava-next)"),
-    (lambda c: c.hybrid, "hybrid (hymba)"),
-    (lambda c: c.family == "ssm", "the SSM family (mamba2-370m)"),
     (lambda c: c.mla, "MLA (deepseek-v2-lite)"),
     (lambda c: c.is_moe, "MoE (deepseek-moe)"),
 )
@@ -38,8 +37,8 @@ def model_device(device) -> torch.device:
 
 
 class ModelAPI:
-    """init / forward / prefill / decode of the dense family on one
-    device."""
+    """init / forward / prefill / decode of the dense, SSM and hybrid
+    families on one device."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         for refused, family in _NOT_PORTED:

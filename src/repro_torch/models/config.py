@@ -13,10 +13,14 @@ One ``ModelConfig`` covers every assigned architecture family:
 The config records the *published* numbers; derived fields (padded vocab,
 head dims, expert dims) are computed here so configs/<arch>.py stay literal.
 
-This is the JAX package's ``ModelConfig`` field for field; only
-``attn_impl`` names the port's two attention paths: ``"cuda"`` (the
-hand-written flash-attention kernel, the default) and ``"torch"`` (the
-chunked online-softmax attention in plain PyTorch).
+This is the JAX package's ``ModelConfig`` field for field, except for
+the port's two path selectors: ``attn_impl`` names the two attention
+paths, ``"cuda"`` (the hand-written flash-attention kernel, the default)
+and ``"torch"`` (the chunked online-softmax attention in plain PyTorch);
+``ssm_impl``, a field of the port alone, names the two SSD chunk-scan
+paths, ``"cuda"`` (the hand-written chunk-scan kernel, the default) and
+``"torch"`` (the kernel's plain version, which computes the JAX
+package's ``chunk_step`` loop in plain PyTorch).
 """
 
 from __future__ import annotations
@@ -101,6 +105,7 @@ class ModelConfig:
     attn_kv_chunk: int = 1024
     decode_kv_chunk: int = 2048
     attn_impl: str = "cuda"                 # cuda | torch
+    ssm_impl: str = "cuda"                  # cuda | torch (the port's own)
     logical_batch_axes: Tuple[str, ...] = ("pod", "data")
     tp_axis: str = "model"
 

@@ -1,9 +1,12 @@
-"""Decoder-only language models of the dense family, in PyTorch.
+"""Decoder-only language models of the dense, SSM and hybrid families, in
+PyTorch.
 
-The counterpart of the JAX package's ``models/lm.py`` for ``kind ==
-"dense"``.  The layer stack is a Python loop over a list of per-layer
-parameter dicts (the JAX package scans stacked leaves); ``layers[i]``
-holds what ``layers[...][i]`` holds there.
+The counterpart of the JAX package's ``models/lm.py`` for the block kinds
+``"dense"``, ``"ssm"`` (mamba2: a norm and the SSD, no MLP) and
+``"hybrid"`` (hymba: attention and the SSD side by side on the same
+normed input, averaged, then the MLP).  The layer stack is a Python loop
+over a list of per-layer parameter dicts (the JAX package scans stacked
+leaves); ``layers[i]`` holds what ``layers[...][i]`` holds there.
 
 Entry points:
 
@@ -11,8 +14,8 @@ Entry points:
   prefill        -> last-position logits + per-layer decode caches
   decode_step    -> next-token ids + updated caches (one token)
 
-MoE, MLA, SSM, hybrid, encoder-decoder and VLM configurations are not
-ported yet (``models.get_model`` refuses them).
+MoE, MLA, encoder-decoder and VLM configurations are not ported yet
+(``models.get_model`` refuses them).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from .config import ModelConfig
 from . import layers as L
+from . import ssm as S
 
 Params = Dict[str, Any]
 
@@ -32,27 +36,50 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
-def block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
+    """kind: dense | ssm | hybrid."""
     dev = gen.device
-    return {"ln1": L.norm_init(cfg.d_model, cfg, dev),
-            "attn": L.attn_init(gen, cfg),
-            "ln2": L.norm_init(cfg.d_model, cfg, dev),
-            "mlp": L.mlp_init(gen, cfg)}
+    p: Params = {"ln1": L.norm_init(cfg.d_model, cfg, dev)}
+    if kind != "ssm":
+        p["attn"] = L.attn_init(gen, cfg)
+        p["ln2"] = L.norm_init(cfg.d_model, cfg, dev)
+        p["mlp"] = L.mlp_init(gen, cfg)
+    if kind != "dense":
+        p["ssm"] = S.ssd_init(gen, cfg)
+    return p
+
+
+def _mix(p: Params, cfg: ModelConfig, x: torch.Tensor,
+         positions: torch.Tensor, kind: str) -> torch.Tensor:
+    """The token-mixing half of a block (attention / SSD / both)."""
+    h = L.apply_norm(x, p["ln1"], cfg)
+    if kind == "ssm":
+        return S.ssd_apply(p["ssm"], cfg, h)
+    out = L.attn_apply(p["attn"], cfg, h, positions)
+    if kind == "hybrid":
+        out = 0.5 * (out + S.ssd_apply(p["ssm"], cfg, h))
+    return out
 
 
 def block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    x = x + L.attn_apply(p["attn"], cfg, L.apply_norm(x, p["ln1"], cfg),
-                         positions)
+                positions: torch.Tensor, kind: str) -> torch.Tensor:
+    x = x + _mix(p, cfg, x, positions, kind)
+    if kind == "ssm":
+        return x
     return x + L.mlp_apply(p["mlp"], cfg, L.apply_norm(x, p["ln2"], cfg))
 
 
 def block_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                  positions: torch.Tensor, kind: str
+                  ) -> Tuple[torch.Tensor, Dict]:
     """Forward + this layer's decode cache.  k and v come from the one
     projection the attention makes (the JAX package projects a second time
     for the cache; the values are the same)."""
     h = L.apply_norm(x, p["ln1"], cfg)
+    cache: Dict = {}
+    if kind == "ssm":
+        out, cache["ssm"] = S.ssd_apply(p["ssm"], cfg, h, with_cache=True)
+        return x + out, cache
     Sq = h.shape[1]
     kv: Dict[str, torch.Tensor] = {}
     out = L.attn_apply(p["attn"], cfg, h, positions, kv=kv)
@@ -60,24 +87,36 @@ def block_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
     W = min(Sq, cfg.sliding_window) if cfg.sliding_window else Sq
     if W < Sq:  # ring layout consistent with decode's slot = pos % W
         idx = (Sq - W + torch.arange(W, device=k.device)) % W
-        cache = {"k": torch.zeros_like(k[:, Sq - W:]),
-                 "v": torch.zeros_like(v[:, Sq - W:])}
+        cache["k"] = torch.zeros_like(k[:, Sq - W:])
+        cache["v"] = torch.zeros_like(v[:, Sq - W:])
         cache["k"][:, idx] = k[:, Sq - W:]
         cache["v"][:, idx] = v[:, Sq - W:]
     else:
-        cache = {"k": k, "v": v}
+        cache["k"], cache["v"] = k, v
+    if kind == "hybrid":
+        s_out, cache["ssm"] = S.ssd_apply(p["ssm"], cfg, h, with_cache=True)
+        out = 0.5 * (out + s_out)
     x = x + out
     return x + L.mlp_apply(p["mlp"], cfg, L.apply_norm(x, p["ln2"], cfg)), \
         cache
 
 
 def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
-                 pos: torch.Tensor, pos0: int) -> Tuple[torch.Tensor, Dict]:
+                 pos: torch.Tensor, pos0: int, kind: str
+                 ) -> Tuple[torch.Tensor, Dict]:
     h = L.apply_norm(x, p["ln1"], cfg)
-    out, cache = L.attn_decode(p["attn"], cfg, h, cache, pos, pos0)
+    if kind == "ssm":
+        out, ssm_cache = S.ssd_decode(p["ssm"], cfg, h, cache["ssm"])
+        return x + out, {"ssm": ssm_cache}
+    out, kv = L.attn_decode(p["attn"], cfg, h, cache, pos, pos0)
+    new_cache = {"k": kv["k"], "v": kv["v"]}
+    if kind == "hybrid":
+        s_out, new_cache["ssm"] = S.ssd_decode(p["ssm"], cfg, h,
+                                               cache["ssm"])
+        out = 0.5 * (out + s_out)
     x = x + out
     return x + L.mlp_apply(p["mlp"], cfg, L.apply_norm(x, p["ln2"], cfg)), \
-        cache
+        new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -85,9 +124,21 @@ def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
 # ---------------------------------------------------------------------------
 
 
+def layer_kind(cfg: ModelConfig) -> str:
+    """The block kind of every layer: ``"ssm"``, ``"hybrid"`` or
+    ``"dense"`` (the JAX package's ``_layer_kinds``, ``lm.py:158``, without
+    MoE's first dense layers)."""
+    if cfg.family == "ssm":
+        return "ssm"
+    if cfg.hybrid:
+        return "hybrid"
+    return "dense"
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Parameters on ``gen.device`` with the JAX package's shapes, scales
-    and dtypes (``lm.py:169-186``); the random numbers differ."""
+    and dtypes (``lm.py:169-186``, ``ssm.py:34-54``); the random numbers
+    differ."""
     dt = L.torch_dtype(cfg.param_dtype)
     V, d = cfg.padded_vocab, cfg.d_model
     dev = gen.device
@@ -99,7 +150,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     head = torch.randn((V, d), generator=gen, device=dev, dtype=torch.float32)
     p["lm_head"] = (head * (1.0 / d ** 0.5)).to(dt)
     del head
-    p["layers"] = [block_init(gen, cfg) for _ in range(cfg.n_layers)]
+    kind = layer_kind(cfg)
+    p["layers"] = [block_init(gen, cfg, kind) for _ in range(cfg.n_layers)]
     return p
 
 
@@ -123,8 +175,9 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict
 
 def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    kind = layer_kind(cfg)
     for lp in params["layers"]:
-        x = block_apply(lp, cfg, x, positions)
+        x = block_apply(lp, cfg, x, positions, kind)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -160,9 +213,10 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
     """Process the full prompt; return last-position logits + caches."""
     x, positions = _embed_inputs(cfg, params, batch)
+    kind = layer_kind(cfg)
     caches: List[Dict] = []
     for lp in params["layers"]:
-        x, c = block_prefill(lp, cfg, x, positions)
+        x, c = block_prefill(lp, cfg, x, positions, kind)
         caches.append(c)
     x = L.apply_norm(x[:, -1:], params["final_norm"], cfg)
     logits = logits_f32(x, params["lm_head"])
@@ -174,8 +228,17 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device) -> Dict:
     """Zero decode caches for a max context of ``seq`` tokens."""
     dt = L.torch_dtype(cfg.dtype)
-    return {"layers": [L.kv_cache_init(cfg, batch, seq, dt, device)
-                       for _ in range(cfg.n_layers)],
+    kind = layer_kind(cfg)
+
+    def one() -> Dict:
+        if kind == "ssm":
+            return {"ssm": S.ssd_cache_init(cfg, batch, dt, device)}
+        c = L.kv_cache_init(cfg, batch, seq, dt, device)
+        if kind == "hybrid":
+            c["ssm"] = S.ssd_cache_init(cfg, batch, dt, device)
+        return c
+
+    return {"layers": [one() for _ in range(cfg.n_layers)],
             "first": [],
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -183,13 +246,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device) -> Dict:
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict, tokens
                 ) -> Tuple[torch.Tensor, Dict]:
     """One greedy decode step. tokens: (B, 1) -> (next (B, 1) int32, cache).
-    The caches are updated in place and returned with ``pos`` advanced."""
+    The KV caches are updated in place, the SSM caches are replaced; the
+    caches are returned with ``pos`` advanced."""
     pos = cache["pos"]
     pos0 = int(pos[0])
     x = params["embed"][_tokens(params, tokens)].to(L.torch_dtype(cfg.dtype))
+    kind = layer_kind(cfg)
     new_caches = []
     for lp, lc in zip(params["layers"], cache["layers"]):
-        x, c = block_decode(lp, cfg, x, lc, pos, pos0)
+        x, c = block_decode(lp, cfg, x, lc, pos, pos0, kind)
         new_caches.append(c)
     x = L.apply_norm(x, params["final_norm"], cfg)
     logits = logits_f32(x, params["lm_head"])

@@ -58,14 +58,26 @@ class ServeEngine:
 
 
 def _seat(cache, pf_cache):
-    """Copy prefill KV into the preallocated max_seq decode cache, in place
-    (the JAX package builds a new tree)."""
+    """Copy the prefill caches (KV, SSM state and conv tail) into the
+    preallocated max_seq decode cache, in place (the JAX package builds a
+    new tree, ``serve/engine.py:52-71``)."""
     for dst, src in zip(cache["layers"], pf_cache["layers"]):
-        for name in ("k", "v"):
-            d, s = dst[name], src[name]
-            if s.shape == d.shape:
-                d.copy_(s)
-            else:   # place the prompt at the cache head (seq axis 1)
-                d[:, :s.shape[1]].copy_(s)
+        _copy_leaves(dst, src)
     cache["pos"] = pf_cache["pos"].clone()
     return cache
+
+
+def _copy_leaves(dst: Dict, src: Dict) -> None:
+    for name, s in src.items():
+        d = dst[name]
+        if isinstance(s, dict):
+            _copy_leaves(d, s)
+        elif s.shape == d.shape:
+            d.copy_(s)
+        else:
+            # sequence-axis mismatch: place the prompt at the cache head
+            # (k/v: seq axis ndim-3; conv: ndim-2).  As in the JAX package,
+            # a prompt shorter than conv_width - 1 puts its conv tail at
+            # the head of the window, not beside the next token.
+            ax = d.dim() - 3 if name in ("k", "v") else d.dim() - 2
+            d.narrow(ax, 0, s.shape[ax]).copy_(s)

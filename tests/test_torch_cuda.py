@@ -3,8 +3,9 @@ card.  The seven encode and read kernels are exact (integer maps;
 histogram counts are integers, so the order of its atomic adds cannot
 change them); flash attention and RMSNorm sum in another order than their
 plain versions and are held to f32 2e-5 and bf16 2e-2 (atol and rtol),
-the tolerances of ``tests/test_kernels.py``.  Every test here needs a CUDA
-device and skips without one; on a machine with the card run
+the tolerances of ``tests/test_kernels.py``, and the SSD chunk scan to 5
+times those, as that file holds its Pallas kernel.  Every test here needs
+a CUDA device and skips without one; on a machine with the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -20,6 +21,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref
 from repro_torch.kernels.delta_encode import ops as de
 from repro_torch.kernels.delta_encode.ref import (delta_zigzag_ref,
                                                   delta_zigzag_varint_ref,
@@ -236,3 +239,102 @@ def test_model_kernels_launch_and_agree_with_the_cpu(dev):
     np.testing.assert_array_equal(got, want)
     assert counts["flash_attention"] == cfg.n_layers
     assert counts["rmsnorm"] == 2 * cfg.n_layers * 8
+
+
+def _ssd_inputs(B, nc, Q, nh, hd, ns, dtype, dev, seed):
+    rng = np.random.RandomState(seed)
+    x = _randn((B, nc, Q, nh, hd), seed, dtype, dev)
+    b = _randn((B, nc, Q, ns), seed + 1, dtype, dev)
+    c = _randn((B, nc, Q, ns), seed + 2, dtype, dev)
+    dt = torch.from_numpy((rng.rand(B, nc, Q, nh) * 0.1)
+                          .astype(np.float32)).to(dev)
+    da = torch.from_numpy((-rng.rand(B, nc, Q, nh) * 0.5)
+                          .astype(np.float32)).to(dev)
+    return x, b, c, dt, da
+
+
+def _ssd_close(got, want):
+    tol = 5 * TOL[want.dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,nc", [(1, 3), (7, 8), (100, 3), (256, 1),
+                                  (256, 8)])
+@pytest.mark.parametrize("ns,hd", [(16, 16), (128, 64), (8, 48), (128, 128)])
+def test_ssd_scan(dev, Q, nc, ns, hd, dtype):
+    tx = _ssd_inputs(2, nc, Q, 3, hd, ns, dtype, dev, Q + nc + hd)
+    y, h = ssd_scan(*tx, return_state=True)
+    torch.cuda.synchronize()
+    want_y, want_h = ssd_scan_chunked_ref(*tx)
+    _ssd_close(y, want_y)
+    _ssd_close(h, want_h)
+
+
+def test_ssd_scan_reads_strided_inputs(dev):
+    """x, b and c as column slices of one tensor, as the model passes
+    them."""
+    B, nc, Q, nh, hd, ns = 2, 3, 100, 4, 64, 128
+    xbc = _randn((B, nc * Q, nh * hd + 2 * ns), 7, torch.bfloat16, dev)
+    x = xbc[..., :nh * hd].reshape(B, nc, Q, nh, hd)
+    b = xbc[..., nh * hd:nh * hd + ns].reshape(B, nc, Q, ns)
+    c = xbc[..., nh * hd + ns:].reshape(B, nc, Q, ns)
+    _, _, _, dt, da = _ssd_inputs(B, nc, Q, nh, 8, 8, torch.float32, dev, 8)
+    y, h = ssd_scan(x, b, c, dt, da, return_state=True)
+    want_y, want_h = ssd_scan_chunked_ref(x.contiguous(), b.contiguous(),
+                                          c.contiguous(), dt, da)
+    _ssd_close(y, want_y)
+    _ssd_close(h, want_h)
+
+
+def test_ssd_scan_overflowing_decay_stays_finite(dev):
+    """exp(cs_q - cs_p) is inf above the diagonal at mamba2's strongest
+    decay over a 256-token chunk; the kernel must select, not mask."""
+    x, b, c, dt, da = _ssd_inputs(1, 2, 256, 2, 64, 128, torch.float32, dev,
+                                  9)
+    da = torch.full_like(da, -3.2)
+    dt = torch.full_like(dt, 0.1)
+    y, h = ssd_scan(x, b, c, dt, da, return_state=True)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    want_y, want_h = ssd_scan_chunked_ref(x, b, c, dt, da)
+    _ssd_close(y, want_y)
+    _ssd_close(h, want_h)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_ssm_models_launch_and_agree_with_the_cpu(dev, arch):
+    """The SSM and hybrid smoke models (f32) on the card against the same
+    weights on the CPU: prefill logits and greedy tokens; one ssd_scan
+    launch per layer of the prefill, one rmsnorm launch per layer and
+    token (the gate norm), and for hymba one flash_attention per layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(dev)
+    cfg = get_smoke_config(arch)
+    params = get_model(cfg, "cpu").init_params(torch.Generator().manual_seed(0))
+    params_dev = to(params)
+    batch = {"tokens": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(2, 32)).astype(np.int32)}
+    want_logits, _ = get_model(cfg, "cpu").prefill(params, batch)
+    got_logits, _ = get_model(cfg, dev).prefill(params_dev, batch)
+    torch.testing.assert_close(got_logits.cpu(), want_logits, atol=1e-4,
+                               rtol=1e-4)
+    want = ServeEngine(cfg, params, max_seq=64, device="cpu").generate(
+        batch, 8)
+    _build.reset_launches()
+    got = ServeEngine(cfg, params_dev, max_seq=64, device=dev).generate(
+        batch, 8)
+    counts = _build.launch_counts()
+    np.testing.assert_array_equal(got, want)
+    assert counts["ssd_scan"] == cfg.n_layers
+    assert counts["rmsnorm"] == cfg.n_layers * 8
+    assert counts.get("flash_attention", 0) == (cfg.n_layers if cfg.hybrid
+                                                else 0)

@@ -56,7 +56,8 @@ def test_recorder_import_leaves_jax_unloaded():
             "repro_torch.models, repro_torch.models.convert, "
             "repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.configs, repro_torch.kernels.flash_attention, "
-            "repro_torch.kernels.rmsnorm; "
+            "repro_torch.kernels.rmsnorm, repro_torch.kernels.ssd_scan, "
+            "repro_torch.models.ssm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(_REPO, "src"))

@@ -2,9 +2,10 @@
 
 ``ServeEngine.generate`` must give the JAX engine's greedy tokens on the
 qwen3-32b smoke configuration (QK-norm, GQA) with the JAX package's
-parameters carried across, on both ``attn_impl``.  The CLI runs with
-``--device cpu --smoke``, and a traced serving loop keeps a grammar of
-the same size however many tokens it generates.
+parameters carried across, on both ``attn_impl``, and on the mamba2-370m
+and hymba-1.5b smoke configurations on both ``ssm_impl``.  The CLI runs
+with ``--device cpu --smoke``, and a traced serving loop keeps a grammar
+of the same size however many tokens it generates.
 """
 
 import json
@@ -48,6 +49,27 @@ def test_generate_matches_jax_engine(jax_run, impl):
     assert eng.stats["prefill_s"] > 0 and eng.stats["decode_s"] > 0
 
 
+@pytest.fixture(scope="module", params=["mamba2-370m", "hymba-1.5b"])
+def jax_ssm_run(request):
+    arch = request.param
+    cfg = jax_smoke(arch)
+    params = jax_model(cfg).init_params(jax.random.PRNGKey(0))
+    batch = {"tokens": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(2, 37)).astype(np.int32)}
+    toks = JaxEngine(cfg, params, max_seq=64).generate(batch, 8)
+    return arch, jax.tree.map(np.asarray, params), batch, toks
+
+
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+def test_ssm_and_hybrid_generate_match_jax_engine(jax_ssm_run, impl):
+    arch, tree, batch, want = jax_ssm_run
+    cfg = get_smoke_config(arch).replace(ssm_impl=impl)
+    params = params_from_numpy(cfg, tree, "cpu")
+    got = ServeEngine(cfg, params, max_seq=64, device="cpu").generate(
+        batch, 8)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_engine_needs_a_card_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -66,6 +88,15 @@ def test_cli_serves_on_the_cpu(capsys):
     assert out["generated_shape"] == [2, 8]
     assert out["device"] == "cpu" and out["tokens_per_s"] > 0
     assert len(out["first_sequence"]) == 8
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_cli_serves_ssm_and_hybrid_on_the_cpu(arch, capsys):
+    serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                    "--batch", "2", "--prompt-len", "32",
+                    "--new-tokens", "4", "--max-seq", "64"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["generated_shape"] == [2, 4] and out["device"] == "cpu"
 
 
 def _traced(tmp_path, n_new: int):

@@ -1,0 +1,192 @@
+"""The port's SSD chunk scan against the JAX package, on the CPU.
+
+On CPU tensors the ``ssd_scan`` wrapper runs its plain PyTorch version
+(``kernels/ssd_scan/ref.py``); it is held against the Pallas kernel in
+interpret mode and the JAX oracle ``ssd_scan_ref``, and its final state
+against a numpy token recurrence.  The models' ``ssm_impl="torch"`` path
+runs the same plain version.
+Inputs are made with numpy from seeds; bf16 inputs are rounded once by JAX
+and carried to torch bit for bit.  Tolerance: ``tests/test_kernels.py``'s
+for this kernel, f32 2e-5 and bf16 2e-2 times 5 (atol and rtol).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan.ops import ssd_scan as ssd_pallas
+from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_token_ref
+from repro.models import ssm as JS
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import (ssd_scan_chunked_ref,
+                                              ssd_scan_token_ref)
+from repro_torch.models import ssm as TS
+from repro_torch.models.convert import tensor_from_numpy
+
+TOL = {"float32": 2e-5 * 5, "bfloat16": 2e-2 * 5}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+# (B, nc, Q, nh, hd, ns): the sweep of tests/test_kernels.py:44-48, then
+# Q = 1 (a prime prompt length's chunk) and nc = 5
+SHAPES = [(1, 2, 8, 2, 8, 4), (2, 4, 16, 3, 8, 4), (1, 3, 32, 4, 16, 8),
+          (2, 7, 1, 3, 16, 8), (1, 5, 12, 2, 16, 16)]
+
+_token_ref = jax.jit(jax_token_ref)
+
+
+def _inputs(B, nc, Q, nh, hd, ns, dtype, seed, da_scale=0.5):
+    """(jax arrays, torch tensors) of x, b, c, dt, da from numpy."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, nc, Q, nh, hd).astype(np.float32)
+    b = rng.randn(B, nc, Q, ns).astype(np.float32)
+    c = rng.randn(B, nc, Q, ns).astype(np.float32)
+    dt = (rng.rand(B, nc, Q, nh) * 0.1).astype(np.float32)
+    da = (-rng.rand(B, nc, Q, nh) * da_scale).astype(np.float32)
+    jx = [jnp.asarray(a, JDT[dtype]) for a in (x, b, c)] \
+        + [jnp.asarray(dt), jnp.asarray(da)]
+    return jx, [tensor_from_numpy(np.asarray(a), "cpu") for a in jx]
+
+
+def _close(got: torch.Tensor, want, dtype):
+    if isinstance(want, torch.Tensor):
+        want = want.float().numpy()
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _numpy_state(x, b, dt, da):
+    """Final state of the token recurrence h_t = exp(da_t) h + dt_t b_t x_t,
+    in f64."""
+    B, nc, Q, nh, hd = x.shape
+    ns = b.shape[-1]
+    T = nc * Q
+    x = x.float().numpy().astype(np.float64).reshape(B, T, nh, hd)
+    b = b.float().numpy().astype(np.float64).reshape(B, T, ns)
+    dt = dt.numpy().astype(np.float64).reshape(B, T, nh)
+    da = da.numpy().astype(np.float64).reshape(B, T, nh)
+    h = np.zeros((B, nh, ns, hd))
+    for t in range(T):
+        h = np.exp(da[:, t])[:, :, None, None] * h + np.einsum(
+            "bs,bh,bhd->bhsd", b[:, t], dt[:, t], x[:, t])
+    return h
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,nc,Q,nh,hd,ns", SHAPES)
+def test_plain_ssd_scan_matches_pallas_and_oracle(B, nc, Q, nh, hd, ns,
+                                                  dtype):
+    jx, tx = _inputs(B, nc, Q, nh, hd, ns, dtype, seed=nc * Q + hd)
+    got = ssd_scan(*tx)
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    _close(got, ssd_pallas(*jx, interpret=True), dtype)
+    _close(got, _token_ref(*jx), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,nc,Q,nh,hd,ns", SHAPES)
+def test_final_state_matches_token_recurrence(B, nc, Q, nh, hd, ns, dtype):
+    _, tx = _inputs(B, nc, Q, nh, hd, ns, dtype, seed=nc + Q * hd)
+    y, h = ssd_scan(*tx, return_state=True)
+    assert h.dtype == torch.float32 and h.shape == (B, nh, ns, hd)
+    torch.testing.assert_close(y, ssd_scan(*tx), atol=0, rtol=0)
+    x, b, _c, dt, da = tx
+    want = _numpy_state(x, b, dt, da)
+    np.testing.assert_allclose(h.numpy(), want, atol=TOL["float32"],
+                               rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hd,ns", SHAPES)
+def test_token_oracle_matches_jax(B, nc, Q, nh, hd, ns):
+    jx, tx = _inputs(B, nc, Q, nh, hd, ns, "float32", seed=3)
+    _close(ssd_scan_token_ref(*tx), _token_ref(*jx), "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decay_that_overflows_above_the_diagonal_stays_finite(dtype):
+    """mamba2's A reaches -exp(log 32): with dt 0.1 and Q 256 the chunk's
+    cumulative decay reaches -819, so exp(cs_q - cs_p) is inf for q < p.
+    Selecting (not masking by multiplication) keeps y and h finite."""
+    B, nc, Q, nh, hd, ns = 1, 2, 256, 2, 8, 4
+    jx, tx = _inputs(B, nc, Q, nh, hd, ns, dtype, seed=5)
+    da = torch.full((B, nc, Q, nh), -3.2)
+    dt = torch.full((B, nc, Q, nh), 0.1)
+    cs = torch.cumsum(da[0, 0, :, 0], 0)
+    assert torch.isinf(torch.exp(cs[0] - cs[-1]))
+    x, b, c = tx[:3]
+    y, h = ssd_scan_chunked_ref(x, b, c, dt, da)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    want = _token_ref(*jx[:3], jnp.asarray(dt.numpy()),
+                      jnp.asarray(da.numpy()))
+    _close(ssd_scan(x, b, c, dt, da), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_inputs_are_read_through_their_strides(dtype):
+    """x, b and c as column slices of one (B, S, C) tensor viewed as
+    chunks, as the model passes them."""
+    B, nc, Q, nh, hd, ns = 2, 3, 8, 2, 16, 8
+    rng = np.random.RandomState(9)
+    di = nh * hd
+    xbc = torch.from_numpy(rng.randn(B, nc * Q, di + 2 * ns)
+                           .astype(np.float32)).to(dtype)
+    x = xbc[..., :di].reshape(B, nc, Q, nh, hd)
+    b = xbc[..., di:di + ns].reshape(B, nc, Q, ns)
+    c = xbc[..., di + ns:].reshape(B, nc, Q, ns)
+    assert not (x.is_contiguous() or b.is_contiguous())
+    dt = torch.from_numpy((rng.rand(B, nc, Q, nh) * 0.1).astype(np.float32))
+    da = torch.from_numpy((-rng.rand(B, nc, Q, nh)).astype(np.float32))
+    y, h = ssd_scan(x, b, c, dt, da, return_state=True)
+    y2, h2 = ssd_scan(x.contiguous(), b.contiguous(), c.contiguous(), dt,
+                      da, return_state=True)
+    torch.testing.assert_close(y, y2, atol=0, rtol=0)
+    torch.testing.assert_close(h, h2, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["rank", "dtype_mix", "dt_dtype", "shape",
+                                  "state_too_wide", "dt_strided",
+                                  "last_stride"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    _, (x, b, c, dt, da) = _inputs(1, 2, 4, 2, 8, 4, "float32", seed=1)
+    if case == "rank":
+        x = x[0]
+    elif case == "dtype_mix":
+        b = b.to(torch.bfloat16)
+    elif case == "dt_dtype":
+        dt = dt.double()
+    elif case == "shape":
+        c = c[:, :, :3]
+    elif case == "state_too_wide":
+        b = torch.zeros(1, 2, 4, 129)
+        c = b.clone()
+    elif case == "dt_strided":
+        dt = dt.transpose(2, 3).contiguous().transpose(2, 3)
+    elif case == "last_stride":
+        x = x.transpose(3, 4).contiguous().transpose(3, 4)
+    with pytest.raises((TypeError, ValueError)):
+        ssd_scan(x, b, c, dt, da)
+
+
+def test_plain_version_counts_no_launches():
+    _build.reset_launches()
+    _, tx = _inputs(1, 2, 4, 2, 8, 4, "float32", seed=2)
+    ssd_scan(*tx, return_state=True)
+    assert _build.launch_counts().get("ssd_scan", 0) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_conv_matches_jax(dtype):
+    rng = np.random.RandomState(4)
+    jx = jnp.asarray(rng.randn(2, 9, 24).astype(np.float32), JDT[dtype])
+    jw = jnp.asarray(rng.randn(4, 24).astype(np.float32), JDT[dtype])
+    jb = jnp.asarray(rng.randn(24).astype(np.float32))
+    got = TS._causal_conv(*[tensor_from_numpy(np.asarray(a), "cpu")
+                            for a in (jx, jw, jb)])
+    assert got.dtype == tensor_from_numpy(np.asarray(jx), "cpu").dtype
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(JS._causal_conv(jx, jw, jb),
+                                          np.float32), atol=tol, rtol=tol)
