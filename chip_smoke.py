@@ -14,7 +14,9 @@ csrc`` and then runs, in order:
                 the encode and read kernels exact, flash attention and
                 RMSNorm within f32 2e-5 / bf16 2e-2, the SSD chunk scan
                 (y and final state) within 5 times that, at edge and full
-                sizes and at every shape the serve runs give them;
+                sizes and at every shape the serve runs give them; bf16
+                flash attention and SSD scan run their tensor-core
+                kernels, f32 their CUDA-core ones;
 3. IOR       -- the write path: 32 ranks x 16,384 lseek+write iterations
                 (paper Listing 3, 1 MiB transfers to one shared file) as
                 ThreadComm ranks, finalized tree and flat on the ``cuda``
@@ -49,7 +51,12 @@ csrc`` and then runs, in order:
                 ``"torch"``;
 9. report    -- the kernels' launch counts from phases 3-6 and from the
                 serve runs (each must be above 0) and their times at the
-                shapes those phases gave them, as one JSON line.
+                shapes those phases gave them, as one JSON line: device
+                time per call, summed over the kernels a call launches
+                (the bf16 SSD scan launches three); flash attention and
+                the SSD scan also at hymba's serve shape
+                (``other_shape``), and their f32 paths (the CUDA-core
+                kernels) at the serve shapes on a line before it.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the run exits non-zero and prints no such line.  Without a
@@ -888,6 +895,21 @@ def phase_serve(s, spec: ServeSpec) -> dict:
                  reverse=True)[:10]
     res["top_kernels"] = [[e.key[:70], e.self_device_time_total / 1e3,
                            e.count] for e in top]
+    # the bf16 serve path must run the tensor-core kernels: the profile
+    # (which may miss some launches) must show each kernel of a model
+    # kernel that ran, and none of one that did not
+    want = serve_launches(cfg, SERVE_NEW)
+    seen = {name: sum(e.count for e in prof.key_averages() if name in e.key)
+            for name in FA_KERNELS + SSD_KERNELS}
+    res["profiled_kernels"] = seen
+    for kernels, model_kernel in ((FA_KERNELS, "flash_attention"),
+                                  (SSD_KERNELS, "ssd_scan")):
+        for name in kernels:
+            require((seen[name] > 0) == (want[model_kernel] > 0),
+                    f"serve {cfg.name}: profile shows {seen[name]} launches "
+                    f"of {name}; {want[model_kernel]} {model_kernel} calls")
+    log(f"serve {cfg.name} main path, tensor-core kernels in the profile: "
+        f"{seen} (for {want})")
     log(f"serve {cfg.name} main path, device time by kernel: " + "; ".join(
         f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
         for e in top))
@@ -1005,31 +1027,51 @@ def cuda_ms(fn, iters: int = 200) -> float:
 L2_BYTES = 50 << 20            # H100 SXM L2 cache, NVIDIA data sheet
 
 
-def device_kernel_ms(fn, kernel: str, iters: int = 20, cold: bool = False):
-    """Mean device time per launch of the CUDA kernel whose name contains
-    ``kernel``, from torch.profiler, over the launches the profile
-    recorded (each call launches it once; a shortfall is logged); None
-    when the profile has none.  Back to back, a working set under the
-    50 MB L2 stays cached; with ``cold``, twice the L2 is overwritten
-    before every call."""
+def device_kernel_ms(fn, kernels, iters: int = 20, cold: bool = False):
+    """Device time per call of ``fn``, from torch.profiler: for each name
+    in ``kernels`` (a name or a tuple of them; each call launches each
+    kernel once) the mean time per launch of the CUDA kernels whose name
+    contains it, over the launches the profile recorded (a window that
+    missed some is profiled again; a shortfall that stays is logged),
+    summed over the names; None when the profile has none of them.
+    Back to back, a working set under the 50 MB L2 stays cached;
+    with ``cold``, twice the L2 is overwritten before every call."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.int32,
                         device="cuda") if cold else None
+    names = (kernels,) if isinstance(kernels, str) else kernels
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    total = sum(e.self_device_time_total for e in hits)
-    count = sum(e.count for e in hits)
-    if count != iters:
-        log(f"profile of {kernel} ({'cold' if cold else 'warm'}) recorded "
-            f"{count} launches of {iters} calls")
-    return total / count / 1e3 if total else None
+    # the profiler at times records only part of a window's launches, or
+    # none: profile again, up to five windows, until it has seen all of
+    # them, and otherwise keep the window that saw the most
+    best = None
+    for _attempt in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for kernel in names:
+            hits = [e for e in prof.key_averages() if kernel in e.key]
+            seen[kernel] = (sum(e.self_device_time_total for e in hits),
+                            sum(e.count for e in hits))
+        if best is None or (min(c for _, c in seen.values())
+                            > min(c for _, c in best.values())):
+            best = seen
+        if all(count == iters for _, count in seen.values()):
+            break
+    per_call = 0.0
+    for kernel, (total, count) in best.items():
+        if count != iters:
+            log(f"profile of {kernel} ({'cold' if cold else 'warm'}) "
+                f"recorded {count} launches of {iters} calls")
+        if not total:
+            return None
+        per_call += total / count / 1e3
+    return per_call
 
 
 def host_ms(fn, iters: int = 50) -> float:
@@ -1186,6 +1228,18 @@ SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 FA_TPU = "src/repro/kernels/flash_attention/flash_attention.py:72"
 RN_TPU = "src/repro/kernels/rmsnorm/rmsnorm.py:25"
 SSD_TPU = "src/repro/kernels/ssd_scan/ssd_scan.py:63"
+# the device kernels one bf16 call launches (the f32 paths keep the
+# CUDA-core kernels flash_attention_kernel and ssd_scan_kernel)
+FA_KERNELS = ("flash_attention_wgmma",)
+SSD_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
+
+
+def attention_pairs(S: int, causal: bool, window: int) -> int:
+    """Visible (query, key) pairs of an S x S attention."""
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    hi = i + 1 if causal else np.full(S, S)
+    return int((hi - lo).sum())
 
 
 def ssd_serve_shape(s, arch: str) -> tuple:
@@ -1214,6 +1268,57 @@ def ssd_work(shape: tuple, elt: int) -> tuple:
     return nbytes, ops
 
 
+class MeasuredCall:
+    """One kernel call at one shape, measured for the kernels line: held
+    against its plain version (and the library call, if any) on the same
+    bf16 inputs, timed with CUDA events and the profiler, and bounded by
+    the larger of its bytes over the memory rate and its operations over
+    ``peak``."""
+
+    def __init__(self, shape, args, kwargs, kernel, plain, nbytes, nops,
+                 peak, iters, scale, library=None):
+        self.shape, self.args, self.kwargs = shape, args, kwargs
+        self.kernel, self.plain, self.library = kernel, plain, library
+        self.nbytes, self.nops, self.peak = nbytes, nops, peak
+        self.iters, self.scale = iters, scale
+
+    def _first(self, out):
+        return out[0] if isinstance(out, tuple) else out
+
+    def run(self):
+        return self._first(self.kernel(*self.args, **self.kwargs))
+
+    def measure(self, kname, what: str) -> dict:
+        plain_kw = {a: b for a, b in self.kwargs.items()
+                    if a != "return_state"}
+        plain = lambda: self._first(  # noqa: E731
+            self.plain(*self.args, **plain_kw))
+        ref = plain()
+        err = close_err(self.run(), ref, what, self.scale)
+        library_ms = None
+        if self.library is not None:
+            close_err(self.library(), ref, f"{what}: library call")
+            library_ms = cuda_ms(self.library, iters=self.iters)
+        del ref
+        bytes_ms = self.nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = self.nops / self.peak * 1e3
+        return {
+            "max_abs_err": err, "ms": cuda_ms(self.run, iters=self.iters),
+            "plain_ms": cuda_ms(plain, iters=max(self.iters // 4, 5)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "shape": self.shape,
+            "options": plain_kw, "dtype": "bfloat16",
+            "device_ms": device_kernel_ms(self.run, kname),
+            "device_cold_ms": device_kernel_ms(self.run, kname, cold=True),
+            "bytes": self.nbytes, "operations": self.nops,
+        }
+
+    def f32_ms(self) -> float:
+        args = [a.float() for a in self.args]
+        return cuda_ms(lambda: self.kernel(*args, **self.kwargs), iters=5)
+
+
 def model_kernel_report(k, s, shapes: dict, launches: dict) -> list:
     """Rows of the kernels line for flash attention and RMSNorm at the
     largest shapes the qwen3-32b serve run gave them (bf16, causal), and
@@ -1235,93 +1340,87 @@ def model_kernel_report(k, s, shapes: dict, launches: dict) -> list:
     x = randn(top("rmsnorm"), 24, bf)
     w = torch.rand(x.shape[-1], generator=torch.Generator(
         device="cuda").manual_seed(25), device="cuda")
-    pairs = S * (S + 1) // 2       # causal, Sq == Skv: visible (q, k) pairs
+    pairs = attention_pairs(S, True, 0)
     sB, snc, sQ, snh, shd, sns = ssd_serve_shape(s, SSD_ARCH)
     require((sB, snc, sQ, snh, shd) in shapes.get("ssd_scan", {}),
             f"ssd_scan saw no call at the {SSD_ARCH} serve shape")
     ssd_args = ssd_inputs(sB, snc, sQ, snh, shd, sns, bf, 26)
-    # name: (kernel, plain version, source, TPU kernel, device kernel name,
-    #        bytes moved, operations, peak rate of their type, library
-    #        call or None, shapes, timing iterations, run of the launches,
-    #        tolerance scale)
-    specs = {
-        "flash_attention": (
-            lambda: k.fa.flash_attention(q, kk, v),
-            lambda: k.fa_ref.flash_attention_ref(q, kk, v), FA_SRC, FA_TPU,
-            "flash_attention_kernel",
-            2 * (2 * q.numel() + kk.numel() + v.numel()),
-            4 * B * H * D * pairs, BF16_TENSOR_OPS_PER_S,
-            lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True).transpose(1, 2),
-            [list(q.shape), list(kk.shape)], 20, SERVE_ARCH, 1),
-        "rmsnorm": (
-            lambda: k.rn.rmsnorm(x, w, eps=1e-6),
-            lambda: k.rn_ref.rmsnorm_ref(x, w, eps=1e-6), RN_SRC, RN_TPU,
-            "rmsnorm_kernel", 2 * 2 * x.numel() + 4 * w.numel(),
-            4 * x.numel(), CORE_OPS_PER_S,
-            lambda: F.rms_norm(x, (x.shape[-1],), w.to(bf), 1e-6),
-            [list(x.shape)], 200, SERVE_ARCH, 1),
-        "ssd_scan": (
-            lambda: k.ssd.ssd_scan(*ssd_args, return_state=True)[0],
-            lambda: k.ssd_ref.ssd_scan_chunked_ref(*ssd_args)[0], SSD_SRC,
-            SSD_TPU, "ssd_scan_kernel",
-            *ssd_work((sB, snc, sQ, snh, shd, sns), 2),
-            BF16_TENSOR_OPS_PER_S, None,
-            [[sB, snc, sQ, snh, shd], [sB, snc, sQ, sns]], 20, SSD_ARCH,
-            SSD_TOL_SCALE),
-    }
-    rows = []
-    for name, (kern, plain, source, replaces, kname, nbytes, nops, peak,
-               library, shape, iters, run, scale) in specs.items():
-        ref = plain()
-        err = close_err(kern(), ref, f"{name} at the serve shape", scale)
-        library_ms = None
-        if library is not None:
-            close_err(library(), ref, f"{name}: library call")
-            library_ms = cuda_ms(library, iters=iters)
-        ms = cuda_ms(kern, iters=iters)
-        device_ms = device_kernel_ms(kern, kname)
-        device_cold_ms = device_kernel_ms(kern, kname, cold=True)
-        plain_ms = cuda_ms(plain, iters=max(iters // 4, 5))
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = nops / peak * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[run].get(name, 0),
-            "launches_run": run,
-            "launches_by_run": {a: c.get(name, 0)
-                                for a, c in launches.items()},
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms, "shape": shape, "dtype": "bfloat16",
-            "device_ms": device_ms, "device_cold_ms": device_cold_ms,
-            "bytes": nbytes, "operations": nops,
-        })
-        log(f"{name} at {shape} bf16: kernel {ms:.4f} ms per call (device "
-            f"{device_ms} ms, L2 flushed {device_cold_ms} ms), plain "
-            f"{plain_ms:.4f} ms, library {library_ms} ms, bound "
-            f"{rows[-1]['bound_ms']:.6f} ms by {rows[-1]['bound_by']} "
-            f"({nbytes} B, {nops} operations; at the 67 TFLOP/s f32 "
-            f"CUDA-core rate {nops / CORE_OPS_PER_S * 1e3:.4f} ms), max abs "
-            f"error {err:.3g}")
-    # the SSD scan at hymba's serve shape too (ns 16, 50 heads)
+    hcfg = s.get_config("hymba-1.5b")
+    hspec = next(sp for sp in SERVE_SPECS if sp.arch == "hymba-1.5b")
+    hq = randn((SERVE_BATCH, hspec.prompt, hcfg.n_heads, hcfg.hd), 28, bf)
+    hk = randn((SERVE_BATCH, hspec.prompt, hcfg.n_kv_heads, hcfg.hd), 29, bf)
+    hv = randn((SERVE_BATCH, hspec.prompt, hcfg.n_kv_heads, hcfg.hd), 30, bf)
+    win = hcfg.sliding_window
+    require(tuple(hq.shape) in shapes.get("flash_attention", {}),
+            "flash_attention saw no call at the hymba-1.5b serve shape")
     hshape = ssd_serve_shape(s, "hymba-1.5b")
     hargs = ssd_inputs(*hshape, bf, 27)
-    hbytes, hops = ssd_work(hshape, 2)
-    rows[-1]["other_shape"] = {"arch": "hymba-1.5b", "shape": list(hshape),
-                               "ms": cuda_ms(lambda: k.ssd.ssd_scan(
-                                   *hargs, return_state=True), iters=20),
-                               "device_ms": device_kernel_ms(
-                                   lambda: k.ssd.ssd_scan(
-                                       *hargs, return_state=True),
-                                   "ssd_scan_kernel"),
-                               "bound_ms": max(
-                                   hbytes / HBM_BYTES_PER_S,
-                                   hops / BF16_TENSOR_OPS_PER_S) * 1e3}
-    log(f"ssd_scan at the hymba-1.5b serve shape {hshape} bf16: "
-        f"{rows[-1]['other_shape']}")
+    # name: (source, TPU kernel, device kernel names, run of the launches,
+    #        the main shape's MeasuredCall, hymba-1.5b's MeasuredCall)
+    specs = {
+        "flash_attention": (
+            FA_SRC, FA_TPU, FA_KERNELS, SERVE_ARCH, MeasuredCall(
+            [list(q.shape), list(kk.shape)], (q, kk, v), {},
+            k.fa.flash_attention, k.fa_ref.flash_attention_ref,
+            2 * (2 * q.numel() + kk.numel() + v.numel()),
+            4 * B * H * D * pairs, BF16_TENSOR_OPS_PER_S, 20, 1,
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)),
+            MeasuredCall(
+                [list(hq.shape), list(hk.shape)], (hq, hk, hv),
+                {"window": win}, k.fa.flash_attention,
+                k.fa_ref.flash_attention_ref,
+                2 * (2 * hq.numel() + hk.numel() + hv.numel()),
+                4 * SERVE_BATCH * hcfg.n_heads * hcfg.hd * attention_pairs(
+                    hspec.prompt, True, win),
+                BF16_TENSOR_OPS_PER_S, 20, 1)),
+        "rmsnorm": (
+            RN_SRC, RN_TPU, "rmsnorm_kernel", SERVE_ARCH, MeasuredCall(
+            [list(x.shape)], (x, w), {"eps": 1e-6}, k.rn.rmsnorm,
+            k.rn_ref.rmsnorm_ref, 2 * 2 * x.numel() + 4 * w.numel(),
+            4 * x.numel(), CORE_OPS_PER_S, 200, 1,
+            lambda: F.rms_norm(x, (x.shape[-1],), w.to(bf), 1e-6)), None),
+        "ssd_scan": (
+            SSD_SRC, SSD_TPU, SSD_KERNELS, SSD_ARCH, MeasuredCall(
+            [[sB, snc, sQ, snh, shd], [sB, snc, sQ, sns]], ssd_args,
+            {"return_state": True}, k.ssd.ssd_scan,
+            k.ssd_ref.ssd_scan_chunked_ref,
+            *ssd_work((sB, snc, sQ, snh, shd, sns), 2),
+            BF16_TENSOR_OPS_PER_S, 20, SSD_TOL_SCALE),
+            MeasuredCall(
+                list(hshape), hargs, {"return_state": True}, k.ssd.ssd_scan,
+                k.ssd_ref.ssd_scan_chunked_ref, *ssd_work(hshape, 2),
+                BF16_TENSOR_OPS_PER_S, 20, SSD_TOL_SCALE)),
+    }
+    rows, f32_ms = [], {}
+    for name, (source, replaces, kname, run, main_call,
+               other_call) in specs.items():
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[run].get(name, 0),
+               "launches_run": run,
+               "launches_by_run": {a: c.get(name, 0)
+                                   for a, c in launches.items()}}
+        row.update(main_call.measure(kname, f"{name} at the serve shape"))
+        log(f"{name} at {row['shape']} bf16: kernel {row['ms']:.4f} ms per "
+            f"call (device {row['device_ms']} ms, L2 flushed "
+            f"{row['device_cold_ms']} ms), plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']} ms, bound {row['bound_ms']:.6f} ms "
+            f"by {row['bound_by']} ({row['bytes']} B, {row['operations']} "
+            f"operations; at the 67 TFLOP/s f32 CUDA-core rate "
+            f"{row['operations'] / CORE_OPS_PER_S * 1e3:.4f} ms), max abs "
+            f"error {row['max_abs_err']:.3g}")
+        if other_call is not None:
+            row["other_shape"] = {"arch": "hymba-1.5b", **other_call.measure(
+                kname, f"{name} at the hymba-1.5b serve shape")}
+            log(f"{name} at the hymba-1.5b serve shape bf16: "
+                f"{row['other_shape']}")
+            # the f32 path (the CUDA-core kernel) at both serve shapes
+            for arch, call in ((run, main_call), ("hymba-1.5b", other_call)):
+                f32_ms[f"{name} {arch}"] = call.f32_ms()
+        rows.append(row)
+    log("f32 paths (CUDA-core kernels) at the serve shapes, ms per call: "
+        + json.dumps(f32_ms))
     return rows
 
 

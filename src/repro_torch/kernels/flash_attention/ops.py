@@ -6,13 +6,16 @@ signature and layout as its ``ops.flash_attention``: q (B, Sq, H, D), k and
 v (B, Skv, KVH, D), ``causal``, ``window``.  It checks its inputs, runs the
 plain PyTorch version (``ref.py``) when they lie on the CPU, and otherwise
 launches the kernel on the current stream -- there is no fallback for CUDA
-tensors: the kernel runs or the call raises.  The kernel reads q, k and v
+tensors: the kernel runs or the call raises.  The kernels read q, k and v
 through their strides, so no transposed copies are made.
 
-The kernel is bound by compute (at the serving prefill, 68.7 GFLOP
-against 151 MB moved).  This first version runs f32 FMAs on the CUDA
-cores, not the tensor cores, so it sits far above that bound; its time is
-in ``PERF.md``.
+The function is bound by compute (at the serving prefill, 68.8 GFLOP
+against 151 MB moved).  bf16 runs on the tensor cores (wgmma), with q, k
+and v loaded by the Tensor Memory Accelerator: their base addresses must
+be 16-byte aligned and their strides multiples of 8 elements, which every
+model call meets; anything else raises (no copy is made).  f32 keeps the
+CUDA-core kernel, whose f32 sums hold the f32 tolerances.  Times are in
+``PERF.md``.
 """
 
 from __future__ import annotations
@@ -66,6 +69,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def _check_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless the bf16 kernel's tensor maps can address q, k, v:
+    16-byte aligned bases, (B, S, H) strides in multiples of 16 bytes,
+    Skv >= 1."""
+    if k.shape[1] < 1:
+        raise ValueError("k and v must hold at least one key")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(s * t.element_size() % 16
+                                    for s in t.stride()[:3]):
+            raise ValueError(f"{name} (strides {tuple(t.stride())}) must "
+                             f"start on a 16-byte boundary with strides in "
+                             f"multiples of 16 bytes for the bf16 kernel's "
+                             f"TMA loads")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Skv, KVH, D) -> (B, Sq, H, D), q's dtype
@@ -81,11 +99,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"B={B} and H={H} must each be <= 65535 (grid)")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel():
+        if q.dtype == torch.bfloat16:
+            _check_tma(q, k, v)
+        strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
         _build.launch(_lib(), "flash_attention", q.device, _build.ptr(q),
                       _build.ptr(k), _build.ptr(v), _build.ptr(out), B, Sq,
-                      Skv, H, KVH, D, q.stride(0), q.stride(1), q.stride(2),
-                      k.stride(0), k.stride(1), k.stride(2), v.stride(0),
-                      v.stride(1), v.stride(2),
+                      Skv, H, KVH, D, *strides,
                       ctypes.c_float(1.0 / math.sqrt(D)), int(causal),
                       window, DTYPE_CODES[q.dtype])
     return out

@@ -16,7 +16,10 @@ must be contiguous.
 At the mamba2-370m serve prefill (B 4, nc 8, Q 256, nh 32, hd 64,
 ns 128) the function moves 77.6 MB and needs 21.5 GFLOP (the causal
 triangle of each chunk), so the bytes bound it, narrowly, on an H100.
-This first version runs f32 FMAs on the CUDA cores; its time is in
+bf16 runs three kernels on the tensor cores (chunk states, state
+passing, chunk output), with f32 scratch of (2 ns hd + Q + 1) floats per
+(batch, chunk, head) that the wrapper allocates; one call counts as one
+``ssd_scan`` launch.  f32 keeps the CUDA-core kernel.  Times are in
 ``PERF.md``.
 """
 
@@ -31,7 +34,7 @@ from .. import _build
 from .ref import ssd_scan_chunked_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
-_SIGNATURES = {"ssd_scan": [_P] * 7 + [_I] * 17 + [_P]}
+_SIGNATURES = {"ssd_scan": [_P] * 8 + [_I] * 17 + [_P]}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128      # hd: the kernel's widest register tile
 MAX_STATE = 128         # ns: shared memory holds the (ns, hd) state
@@ -91,16 +94,23 @@ def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         return (y, h) if return_state else y
     B, nc, Q, nh, hd = x.shape
     ns = b.shape[-1]
-    if B > 65535:
-        raise ValueError(f"B={B} must be <= 65535 (grid)")
+    if B * nc > 65535 or nh > 65535:
+        raise ValueError(f"B * nc = {B * nc} and nh = {nh} must each be "
+                         f"<= 65535 (grid)")
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     h = torch.zeros((B, nh, ns, hd), dtype=torch.float32, device=x.device) \
         if return_state else None
     if x.numel():
+        # bf16: chunk states, the states entering each chunk as bf16 hi
+        # and lo, then cs and tot of every (batch, chunk, head)
+        scratch = torch.empty(B * nc * nh * (2 * ns * hd + Q + 1),
+                              dtype=torch.float32, device=x.device) \
+            if x.dtype == torch.bfloat16 else None
         _build.launch(_lib(), "ssd_scan", x.device, _build.ptr(x),
                       _build.ptr(b), _build.ptr(c), _build.ptr(dt),
                       _build.ptr(da), _build.ptr(y),
                       _build.ptr(h) if h is not None else None,
+                      _build.ptr(scratch) if scratch is not None else None,
                       B, nc, Q, nh, hd, ns, *x.stride()[:4],
                       *b.stride()[:3], *c.stride()[:3], DTYPE_CODES[x.dtype])
     return (y, h) if return_state else y

@@ -9,13 +9,18 @@ once, and also returns the state after the last chunk.  The wrapper in
 ``ssm_impl="torch"`` path runs it on any device, and ``chip_smoke.py``
 holds the CUDA kernel against it on the card.
 
+``ssd_scan_passes_ref`` is the same function regrouped as the bf16 CUDA
+kernels compute it, in three passes over all chunks at once: the chunk
+states, the state passing, the chunk outputs.  It lets the CPU tests prove
+the regrouping, and emulate the kernels' bf16 operands (``operand``).
+
 ``ssd_scan_token_ref`` is the token-by-token recurrence, a port of the JAX
 package's oracle ``ssd_scan_ref`` (``kernels/ssd_scan/ref.py:10``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -57,6 +62,52 @@ def ssd_scan_chunked_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         h = torch.exp(tot)[..., None] * h + torch.einsum(
             "bqs,bhqd->bhsd", bb, sdecay)
     return y, h
+
+
+def ssd_scan_passes_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                        dt: torch.Tensor, da: torch.Tensor,
+                        operand: Optional[Callable] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD in the three passes of ``csrc/ssd_scan.cu``, in f32;
+    same arguments and results as :func:`ssd_scan_chunked_ref`.
+
+      A  per chunk: cs = cumsum(da), tot = cs[Q-1],
+         S_c = sum_q b_q (outer) dt_q exp(tot - cs_q) x_q
+      B  h_0 = 0, h_{c+1} = exp(tot_c) h_c + S_c  (h_nc is the final state)
+      C  y[q] = exp(cs_q) c_q . h_c
+                + sum_{p <= q} (c_q . b_p) exp(cs_q - cs_p) dt_p x_p
+
+    ``operand``, if given, is applied to the three f32 operands the kernels
+    take into the tensor cores -- the decay-scaled x of A, the entering
+    states h_c and the weights W of C -- before their products (the tests
+    pass bf16 rounding)."""
+    op = operand if operand is not None else (lambda t: t)
+    B, nc, Q, nh, hd = x.shape
+    xf = x.float().permute(0, 1, 3, 2, 4)                 # (B, nc, nh, Q, hd)
+    bf, cf = b.float(), c.float()                        # (B, nc, Q, ns)
+    dtf = dt.float().permute(0, 1, 3, 2)                 # (B, nc, nh, Q)
+    cs = torch.cumsum(da.float(), dim=2).permute(0, 1, 3, 2)
+    tot = cs[..., -1:]                                   # (B, nc, nh, 1)
+    # A: each chunk's own contribution to the state
+    xs = (dtf * torch.exp(tot - cs))[..., None] * xf
+    S = torch.einsum("bcqs,bchqd->bchsd", bf, op(xs))    # (B, nc, nh, ns, hd)
+    # B: the state entering each chunk
+    h = torch.zeros_like(S[:, 0])
+    entering = []
+    for ci in range(nc):
+        entering.append(h)
+        h = torch.exp(tot[:, ci])[..., None] * h + S[:, ci]
+    H = torch.stack(entering, dim=1)
+    # C: the chunk outputs
+    y_inter = torch.exp(cs)[..., None] * torch.einsum(
+        "bcqs,bchsd->bchqd", cf, op(H))
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))
+    scores = (cf @ bf.transpose(2, 3))[:, :, None]       # (B, nc, 1, Q, Q)
+    ldecay = torch.exp(cs[..., :, None] - cs[..., None, :])
+    w = torch.where(causal, scores * ldecay * dtf[..., None, :], 0.0)
+    y = y_inter + op(w) @ xf
+    return y.permute(0, 1, 3, 2, 4).to(x.dtype), h
 
 
 def ssd_scan_token_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

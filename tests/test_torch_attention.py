@@ -23,6 +23,7 @@ from repro.kernels.rmsnorm.ref import rmsnorm_ref as rmsnorm_jax_ref
 from repro.models import layers as JL
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_mask
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import layers as TL
 from repro_torch.models.convert import tensor_from_numpy
@@ -95,6 +96,39 @@ def test_chunked_torch_path_matches_xla(B, S, H, KVH, D, q_chunk, kv_chunk,
     want = _xla(jq, jk, jv, causal=causal, window=window, q_chunk=q_chunk,
                 kv_chunk=kv_chunk)
     _close(got, want, dtype)
+
+
+def _p_in_bf16(q, k, v, causal, window):
+    """Attention with p = exp(s - max) rounded to bf16 before p @ v and the
+    denominator summed from the unrounded p: the rounding points of the
+    CUDA kernel's bf16 path (emulated in f32 on the CPU)."""
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float().reshape(B, Sq, KVH, G, D),
+                     k.float()) / np.sqrt(D)
+    s = s.masked_fill(~attention_mask(Sq, Skv, causal, window, "cpu"),
+                      float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(torch.bfloat16).float(),
+                       v.float()) / p.sum(-1)[..., None].permute(0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_p_rounded_to_bf16_stays_within_the_bf16_tolerance(causal, window):
+    """The bf16 kernel rounds p to bf16 before P V, as the JAX XLA path
+    does (Pallas keeps p in f32): at qwen3's head dim, GQA 8 and S 300 that
+    stays within bf16 2e-2 of the JAX oracle and of the XLA path."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 300, 8, 1, 128, "bfloat16", 11)
+    got = _p_in_bf16(tq, tk, tv, causal, window)
+    ref = jnp.swapaxes(_attention_ref(
+        jnp.swapaxes(jq, 1, 2), jnp.swapaxes(jk, 1, 2),
+        jnp.swapaxes(jv, 1, 2), causal=causal, window=window), 1, 2)
+    assert bool((got.float().numpy()
+                 != np.asarray(ref, np.float32)).any())   # it does round
+    _close(got, ref, "bfloat16")
+    _close(got, _xla(jq, jk, jv, causal=causal, window=window), "bfloat16")
 
 
 def test_fully_masked_rows_are_zero():

@@ -186,6 +186,51 @@ def test_flash_attention_at_the_serving_prefill_shape(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [127, 129, 255])
+def test_flash_attention_tails_of_the_q_tile(dev, S, dtype):
+    """S one short of, one past and one short of twice the bf16 kernel's
+    128-row q tile (and of its kv tiles)."""
+    q = _randn((2, S, 8, 128), S, dtype, dev)
+    k = _randn((2, S, 2, 128), S + 1, dtype, dev)
+    v = _randn((2, S, 2, 128), S + 2, dtype, dev)
+    _close(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_hymba_like_group_and_window(dev, dtype):
+    """GQA group 5 at D 64 with a window of 128 keys, as hymba's layers."""
+    q = _randn((2, 300, 25, 64), 30, dtype, dev)
+    k = _randn((2, 300, 5, 64), 31, dtype, dev)
+    v = _randn((2, 300, 5, 64), 32, dtype, dev)
+    _close(flash_attention(q, k, v, window=128),
+           flash_attention_ref(q, k, v, window=128))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_one_query_row(dev, causal, dtype):
+    """Sq = 1 against 300 keys: one valid row in a 128-row q tile."""
+    q = _randn((2, 1, 8, 128), 40, dtype, dev)
+    k = _randn((2, 300, 1, 128), 41, dtype, dev)
+    v = _randn((2, 300, 1, 128), 42, dtype, dev)
+    _close(flash_attention(q, k, v, causal=causal),
+           flash_attention_ref(q, k, v, causal=causal))
+
+
+def test_flash_attention_rejects_what_tma_cannot_address(dev):
+    """bf16 q whose rows start 2 bytes apart from 16-byte boundaries (an
+    odd row stride): the wrapper raises, it does not copy."""
+    B, S, H, D = 2, 40, 4, 64
+    base = _randn((B, S, H * D + 1), 50, torch.bfloat16, dev)
+    q = base[..., 1:].unflatten(-1, (H, D))
+    k = _randn((B, S, 1, D), 51, torch.bfloat16, dev)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError):
+        flash_attention(base[..., :H * D].unflatten(-1, (H, D)), k, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 128), (37, 128), (4, 7, 8, 128),
                                    (262144, 128), (256, 128), (3, 100),
                                    (5, 8192), (9, 8)])
@@ -265,6 +310,19 @@ def _ssd_close(got, want):
 @pytest.mark.parametrize("ns,hd", [(16, 16), (128, 64), (8, 48), (128, 128)])
 def test_ssd_scan(dev, Q, nc, ns, hd, dtype):
     tx = _ssd_inputs(2, nc, Q, 3, hd, ns, dtype, dev, Q + nc + hd)
+    y, h = ssd_scan(*tx, return_state=True)
+    torch.cuda.synchronize()
+    want_y, want_h = ssd_scan_chunked_ref(*tx)
+    _ssd_close(y, want_y)
+    _ssd_close(h, want_h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q", [1, 64])
+def test_ssd_scan_sixteen_chunks(dev, Q, dtype):
+    """nc 16: the state-passing walk over many chunks, with Q 1 (a prime
+    prompt length's chunk) and Q 64 (one full tile)."""
+    tx = _ssd_inputs(2, 16, Q, 3, 64, 128, dtype, dev, 60 + Q)
     y, h = ssd_scan(*tx, return_state=True)
     torch.cuda.synchronize()
     want_y, want_h = ssd_scan_chunked_ref(*tx)

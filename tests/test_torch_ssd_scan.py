@@ -22,6 +22,7 @@ from repro.models import ssm as JS
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import (ssd_scan_chunked_ref,
+                                              ssd_scan_passes_ref,
                                               ssd_scan_token_ref)
 from repro_torch.models import ssm as TS
 from repro_torch.models.convert import tensor_from_numpy
@@ -122,6 +123,76 @@ def test_decay_that_overflows_above_the_diagonal_stays_finite(dtype):
     want = _token_ref(*jx[:3], jnp.asarray(dt.numpy()),
                       jnp.asarray(da.numpy()))
     _close(ssd_scan(x, b, c, dt, da), want, dtype)
+
+
+# f32: the passes regroup the chunked version's f32 sums (they agree to
+# 0 on the CPU); the Pallas kernel sums in its own order and is held to
+# this file's f32 tolerance, as the chunked version is
+PASS_TOL = 1e-5
+
+
+@pytest.mark.parametrize("ns,hd", [(16, 16), (128, 64)])
+@pytest.mark.parametrize("nc", [1, 3, 8])
+@pytest.mark.parametrize("Q", [1, 7, 100, 256])
+def test_passes_match_chunked_ref_and_pallas(Q, nc, ns, hd):
+    """The three passes of the bf16 CUDA kernels (chunk states, state
+    passing, chunk outputs), in plain f32, give the chunked function's y
+    and final state, and the Pallas kernel's y."""
+    jx, tx = _inputs(1, nc, Q, 2, hd, ns, "float32", seed=Q + nc + ns)
+    y, h = ssd_scan_passes_ref(*tx)
+    want_y, want_h = ssd_scan_chunked_ref(*tx)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), atol=PASS_TOL,
+                               rtol=PASS_TOL)
+    np.testing.assert_allclose(h.numpy(), want_h.numpy(), atol=PASS_TOL,
+                               rtol=PASS_TOL)
+    _close(y, ssd_pallas(*jx, interpret=True), "float32")
+
+
+def test_passes_keep_an_overflowing_decay_finite():
+    """The decay of the chunk-output pass is inf above the diagonal at
+    mamba2's strongest decay; it is selected away, never multiplied."""
+    _, tx = _inputs(1, 2, 256, 2, 16, 8, "float32", seed=6)
+    x, b, c = tx[:3]
+    dt = torch.full((1, 2, 256, 2), 0.1)
+    da = torch.full((1, 2, 256, 2), -3.2)
+    y, h = ssd_scan_passes_ref(x, b, c, dt, da)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    want_y, want_h = ssd_scan_chunked_ref(x, b, c, dt, da)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), atol=PASS_TOL,
+                               rtol=PASS_TOL)
+    np.testing.assert_allclose(h.numpy(), want_h.numpy(), atol=PASS_TOL,
+                               rtol=PASS_TOL)
+
+
+def _bf16_once(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_hi_lo(t):
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("rounding", ["once", "hi_lo"])
+def test_bf16_operands_stay_within_the_bf16_tolerance(rounding):
+    """The bf16 kernels take W, the decay-scaled x and h into the tensor
+    cores as bf16.  At one head of mamba2's shape (Q 256, ns 128, hd 64,
+    nc 3) either rounding -- once, or as a hi + lo pair -- keeps y within
+    the kernel's bf16 tolerance of the plain version.  The kernels use
+    hi + lo: rounded once, y moves by more than 1e-3 (relative L2) in one
+    layer, too much of the 2e-3 a layer that mamba2's serve bound leaves
+    the whole path; hi + lo moves it by under 5e-4."""
+    _, tx = _inputs(1, 3, 256, 1, 64, 128, "bfloat16", seed=12)
+    op = _bf16_once if rounding == "once" else _bf16_hi_lo
+    y, h = ssd_scan_passes_ref(*tx, operand=op)
+    want_y, want_h = ssd_scan_chunked_ref(*tx)
+    _close(y, want_y, "bfloat16")
+    _close(h, want_h, "bfloat16")
+    rel = float((y.float() - want_y.float()).norm() / want_y.float().norm())
+    if rounding == "hi_lo":
+        assert rel < 5e-4
+    else:
+        assert rel > 1e-3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
