@@ -11,20 +11,29 @@ csrc`` and then runs, in order:
 
 1. build     -- compile every kernel source (one nvcc each, in parallel);
 2. kernels   -- each kernel against its plain PyTorch version on the card:
-                the encode and read kernels exact, flash attention and
-                RMSNorm within f32 2e-5 / bf16 2e-2, the SSD chunk scan
-                (y and final state) within 5 times that, at edge and full
-                sizes and at every shape the serve runs give them; bf16
-                flash attention and SSD scan run their tensor-core
-                kernels, f32 their CUDA-core ones;
+                the encode and read kernels exact (``delta_zigzag`` also
+                with segments, ``uvarint_pack64`` at every length class,
+                both at lengths around a warp, a block and a tile, and off
+                16-byte alignment), flash attention and RMSNorm within f32
+                2e-5 / bf16 2e-2, the SSD chunk scan (y and final state)
+                within 5 times that, at edge and full sizes and at every
+                shape the serve runs give them, and at mamba2's shape for
+                a prime length (Q 1, 2,053 chunks in groups) with its peak
+                memory held to the scratch budget; bf16 flash attention
+                and SSD scan run their tensor-core kernels, f32 their
+                CUDA-core ones;
 3. IOR       -- the write path: 32 ranks x 16,384 lseek+write iterations
                 (paper Listing 3, 1 MiB transfers to one shared file) as
                 ThreadComm ranks, finalized tree and flat on the ``cuda``
                 backend and once on ``numpy``; all ``*.bin`` bytes must
                 agree and the port's reader must give back the offsets;
 4. facade    -- one rank through ``session`` + the ``posix`` facade (real
-                file I/O, deterministic clock), one-shot and streaming,
-                ``cuda`` against ``numpy`` bytes;
+                file I/O, deterministic clock), one-shot and streaming at
+                4,096 and 512 records a timestamp block, ``cuda`` against
+                ``numpy`` bytes; every streaming flush on ``cuda`` (here
+                and in phase 6) must launch ``delta_zigzag`` once, however
+                many blocks it writes, and every ``cuda`` varint pack of
+                phases 3-6 ``uvarint_pack64`` once;
 5. patterns  -- the batched pattern encoders (``encode_many``,
                 ``push_stream``) on the card, against ``numpy``;
 6. read      -- the read side over phase 3's traces: ``TraceReader.view()``
@@ -48,7 +57,9 @@ csrc`` and then runs, in order:
                 layers), and the hybrid one, hymba-1.5b at full depth (32
                 layers), with 4 prompts of 2,048 tokens each; their plain
                 run flips both ``attn_impl`` and ``ssm_impl`` to
-                ``"torch"``;
+                ``"torch"``; then a mamba2 prefill of 4 prompts of 2,053
+                tokens (a prime: Q 1), kernel path against plain path, with
+                its peak memory;
 9. report    -- the kernels' launch counts from phases 3-6 and from the
                 serve runs (each must be above 0) and their times at the
                 shapes those phases gave them, as one JSON line: device
@@ -234,7 +245,9 @@ def phase_build(build) -> float:
     return secs
 
 
-def phase_kernels(k, ssm_calls: dict) -> None:
+def phase_kernels(k, ssm_calls: dict) -> dict:
+    """Every kernel against its plain version; returns the SSD memory
+    checks by prompt length."""
     dev = torch.device("cuda")
 
     def same(got, want, what):
@@ -259,6 +272,30 @@ def phase_kernels(k, ssm_calls: dict) -> None:
             require(classes == set(range(1, 11)) or n < 1000,
                     f"uvarint n={n}: length classes {sorted(classes)}")
         log(f"delta_zigzag, uvarint_encode64 exact at n={n}")
+    # lengths around a warp of 4-value lanes, a block and a 1,024-value
+    # tile, primes; segment boundaries inside a vector and a warp; inputs
+    # one element off 16-byte alignment read a value at a time
+    for n in (1, 2, 63, 64, 1023, 1025, 2048, 2049, 4099, 32771, 65542,
+              16777216):
+        x = torch.from_numpy(tick_stream(n, "extreme", n + 2).view(np.int32))
+        xs = torch.cat([torch.zeros(1, dtype=torch.int32), x]).to(dev)[1:]
+        x = x.to(dev)
+        for seg in (0, 1, 3, 4, 5, 33, 12288):
+            want = k.de_ref.delta_zigzag_ref(x, seg)
+            same(k.de.delta_zigzag(x, seg), want,
+                 f"delta_zigzag n={n} segment={seg}")
+            same(k.de.delta_zigzag(xs, seg), want,
+                 f"delta_zigzag n={n} segment={seg} unaligned")
+        for v in (torch.from_numpy(ragged_u64(n, n + 3).view(np.int64)),
+                  torch.arange(n, dtype=torch.int64) % 300):
+            vs = torch.cat([torch.zeros(1, dtype=torch.int64), v]).to(dev)
+            want = k.de_ref.uvarint_pack64_ref(v.to(dev))
+            same(k.de.uvarint_pack64(v.to(dev)), want,
+                 f"uvarint_pack64 n={n}")
+            same(k.de.uvarint_pack64(vs[1:]), want,
+                 f"uvarint_pack64 n={n} unaligned")
+    log("delta_zigzag with segments 0, 1, 3, 4, 5, 33, 12,288 and "
+        "uvarint_pack64 exact at n 1..16,777,216, aligned and not")
     for c, r in ((4096, 32), (1, 2), (257, 3), (32, 32)):
         for base in (0, 1 << 31, (1 << 61)):
             V = torch.from_numpy(fit_matrix(c, r, c + r, base)).to(dev)
@@ -299,7 +336,7 @@ def phase_kernels(k, ssm_calls: dict) -> None:
                 require(int(codes.max()) >= 1 << 31,
                         f"digram_codes n={n}: no code passed 2^31")
         log(f"delta_zigzag_varint, histogram, digram_codes exact at n={n}")
-    model_kernels(k, ssm_calls)
+    return model_kernels(k, ssm_calls)
 
 
 def randn(shape, seed: int, dtype: torch.dtype) -> torch.Tensor:
@@ -340,7 +377,7 @@ def ssm_serve_kernel_calls(s) -> dict:
     return calls
 
 
-def model_kernels(k, ssm_calls: dict) -> None:
+def model_kernels(k, ssm_calls: dict) -> dict:
     """Flash attention and RMSNorm against their plain versions: bf16 and
     f32, GQA groups 1 and 8, causal, non-causal and windowed masks, prime
     and ragged lengths, every supported head dim, the serve shapes (the
@@ -406,7 +443,7 @@ def model_kernels(k, ssm_calls: dict) -> None:
             log(f"rmsnorm at the SSM serve gate-norm shape {shape} {dtype}: "
                 f"max abs error {err:.3g}")
     torch.cuda.empty_cache()
-    ssd_kernel_checks(k)
+    return ssd_kernel_checks(k)
 
 
 def ssd_inputs(B, nc, Q, nh, hd, ns, dtype, seed):
@@ -431,7 +468,8 @@ def ssd_check(k, args, what) -> float:
 def ssd_kernel_checks(k) -> None:
     """ssd_scan against its plain version: Q 1, 7, 100, 256 (tails of the
     kernel's 64-row tiles), nc 1, 3, 8, (ns, hd) (16, 16) and (128, 64),
-    f32 and bf16, then both serve prefill shapes."""
+    f32 and bf16, then both serve prefill shapes, the bf16 groups, and
+    mamba2's shape at S 2,048 and 2,053 with its memory (returned by S)."""
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for Q, nc in ((1, 3), (7, 8), (100, 3), (256, 1), (256, 8)):
@@ -451,6 +489,71 @@ def ssd_kernel_checks(k) -> None:
                         f"ssd_scan at the {arch} serve shape")
         log(f"ssd_scan at the {arch} serve prefill shape (B, nc, Q, nh, hd, "
             f"ns) = {shape} bf16: max abs error {err:.3g}")
+    # groups: a group boundary only cuts the state pass's walk, so any
+    # grouping gives one group's bits (a smaller scratch budget forces
+    # groups of 3 and 5); B nc past the grid's 65,535
+    shape = (2, 16, 64, 3, 64, 128)
+    args = ssd_inputs(*shape, torch.bfloat16, 32)
+    y, h = k.ssd.ssd_scan(*args, return_state=True)
+    per_chunk = k.ssd.scratch_plan(*shape)[1] // shape[1]
+    budget = k.ssd.SCRATCH_BUDGET
+    try:
+        for group in (3, 5):
+            k.ssd.SCRATCH_BUDGET = group * per_chunk
+            require(k.ssd.scratch_plan(*shape)[0] == group,
+                    f"a budget of {group} chunks gave another group")
+            yg, hg = k.ssd.ssd_scan(*args, return_state=True)
+            require(torch.equal(yg, y) and torch.equal(hg, h),
+                    f"ssd_scan in groups of {group} != one group")
+    finally:
+        k.ssd.SCRATCH_BUDGET = budget
+    err = ssd_check(k, ssd_inputs(33, 2000, 1, 1, 16, 16, torch.bfloat16, 33),
+                    "ssd_scan at B 33, nc 2,000 (B nc > 65,535)")
+    log(f"ssd_scan in groups of 3 and 5 bit-identical to one group; at B "
+        f"33 x nc 2,000 (B nc 66,000, Q 1) within tolerance (max abs error "
+        f"{err:.3g})")
+    return {S: ssd_memory_check(k, S) for S in (2048, 2053)}
+
+
+def ssd_prompt_shape(S: int) -> tuple:
+    """(B, nc, Q, nh, hd, ns) of mamba2-370m's SSD scans for SERVE_BATCH
+    prompts of S tokens: Q as ``models.ssm.ssd_apply`` chooses it (the
+    largest divisor of S up to the 256 of the config)."""
+    Q = min(256, S)
+    while S % Q:
+        Q -= 1
+    return (SERVE_BATCH, S // Q, Q, 32, 64, 128)
+
+
+def ssd_memory_check(k, S: int) -> dict:
+    """One bf16 ssd_scan at mamba2's shape for S tokens against its plain
+    version, with the memory it allocates above its inputs: at most the
+    scratch budget above y and the state (the allocator rounds each
+    allocation up to 2 MiB)."""
+    shape = ssd_prompt_shape(S)
+    args = ssd_inputs(*shape, torch.bfloat16, 34)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y, h = k.ssd.ssd_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    G, scratch = k.ssd.scratch_plan(*shape)
+    limit = k.ssd.SCRATCH_BUDGET + y.numel() * 2 + h.numel() * 4 + (6 << 20)
+    require(peak <= limit, f"ssd_scan at S {S}: {peak} B above its inputs, "
+            f"over {limit}")
+    del y, h
+    err = ssd_check(k, args, f"ssd_scan at mamba2's shape, S {S}")
+    # the plan is scratch_plan's arithmetic; the peak is measured
+    res = {"S": S, "shape": list(shape), "planned_group": G,
+           "planned_scratch_bytes": scratch, "peak_extra_bytes": peak,
+           "max_abs_err": err}
+    log(f"ssd_scan at mamba2's shape for S {S} (B, nc, Q, nh, hd, ns) = "
+        f"{shape} bf16: groups of {G} chunks, scratch {scratch} B (one "
+        f"group of all {shape[1]}: "
+        f"{scratch // G * shape[1]} B); peak memory above the inputs "
+        f"{peak} B (limit {limit}); max abs error {err:.3g}")
+    return res
 
 
 def bin_files(tdir: str) -> dict:
@@ -598,7 +701,9 @@ def facade_trace(p, name: str, backend: str, **cfg) -> dict:
 
 def phase_facade(p) -> None:
     for mode, cfg in (("oneshot", {}),
-                      ("stream", {"flush_every_n_records": 4096})):
+                      ("stream", {"flush_every_n_records": 4096}),
+                      ("stream512", {"flush_every_n_records": 4096,
+                                     "ts_block_records": 512})):
         got = facade_trace(p, f"{mode}-cuda", BACKEND, **cfg)
         want = facade_trace(p, f"{mode}-numpy", "numpy", **cfg)
         require(got == want, f"facade {mode}: cuda and numpy bytes differ")
@@ -1004,6 +1109,64 @@ def phase_serve(s, spec: ServeSpec) -> dict:
     return res
 
 
+PRIME_PROMPT = 2053   # a prime prompt length: the SSD runs Q 1, nc 2,053
+
+
+def prime_prefill(s, spec: ServeSpec) -> dict:
+    """A prefill of SERVE_BATCH prompts of PRIME_PROMPT tokens on
+    ``spec.arch`` (full depth, bf16, the serve run's seeded weights): after
+    a warm-up, the kernel path with the launch counts set to 0 just before
+    and read just after, and its memory peak; then the plain path
+    ``spec.plain`` selects, and the logits of both within ``spec.rtol``."""
+    dev = torch.device("cuda")
+    cfg = s.get_config(spec.arch).replace(n_layers=spec.layers)
+    params = s.get_model(cfg, dev).init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    batch = {"tokens": np.random.RandomState(1).randint(
+        0, cfg.vocab_size, size=(SERVE_BATCH, PRIME_PROMPT)).astype(np.int32)}
+    model = s.get_model(cfg, dev)
+    with torch.inference_mode():
+        model.prefill(params, batch)                    # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s.build.reset_launches()
+        t = time.monotonic()
+        lg_kernel, _ = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        kernel_ms = (time.monotonic() - t) * 1e3
+        launches = s.build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t = time.monotonic()
+        lg_plain, _ = s.get_model(cfg.replace(**spec.plain), dev).prefill(
+            params, batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t) * 1e3
+    want = serve_launches(cfg, 1)           # the prefill's own launches
+    for name, n in want.items():
+        require(launches.get(name, 0) == n,
+                f"prime prefill: {name} launched {launches.get(name, 0)} "
+                f"times, want {n}")
+    require(bool(torch.isfinite(lg_kernel).all()),
+            "prime prefill: logits not finite")
+    rel = float((lg_kernel - lg_plain).norm() / lg_plain.norm())
+    require(rel <= spec.rtol,
+            f"prime prefill {cfg.name}: logits of the kernel and plain paths "
+            f"differ by {rel:.3g} (relative L2), over {spec.rtol}")
+    res = {"arch": cfg.name, "prompt": PRIME_PROMPT, "batch": SERVE_BATCH,
+           "prefill_ms": kernel_ms, "plain_prefill_ms": plain_ms,
+           "logits_rel_err": rel, "launches": launches,
+           "peak_bytes": peak, "peak_above_weights_bytes": peak - base}
+    log(f"prime prefill {cfg.name}: {SERVE_BATCH} x {PRIME_PROMPT} tokens "
+        f"(SSD Q 1, {PRIME_PROMPT} chunks) kernel path {kernel_ms:.2f} ms, "
+        f"plain path {plain_ms:.2f} ms; logits relative L2 {rel:.3g} (limit "
+        f"{spec.rtol}); max memory allocated {peak} B ({peak - base} B above "
+        f"the weights); launches {launches}")
+    del params, lg_kernel, lg_plain
+    torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------------------
 # timing at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -1027,13 +1190,16 @@ def cuda_ms(fn, iters: int = 200) -> float:
 L2_BYTES = 50 << 20            # H100 SXM L2 cache, NVIDIA data sheet
 
 
-def device_kernel_ms(fn, kernels, iters: int = 20, cold: bool = False):
+def device_kernel_ms(fn, kernels, iters: int = 20, cold: bool = False,
+                     per_call: int = 1, recorded: dict = None):
     """Device time per call of ``fn``, from torch.profiler: for each name
     in ``kernels`` (a name or a tuple of them; each call launches each
-    kernel once) the mean time per launch of the CUDA kernels whose name
-    contains it, over the launches the profile recorded (a window that
-    missed some is profiled again; a shortfall that stays is logged),
-    summed over the names; None when the profile has none of them.
+    kernel ``per_call`` times) the mean time per launch of the CUDA
+    kernels whose name contains it, over the launches the profile recorded
+    (a window that missed some is profiled again; a shortfall that stays
+    is logged), times ``per_call``, summed over the names; None when the
+    profile has none of them.  ``recorded``, if given, gets each name's
+    launches in the window kept.
     Back to back, a working set under the 50 MB L2 stays cached;
     with ``cold``, twice the L2 is overwritten before every call."""
     from torch.profiler import ProfilerActivity, profile
@@ -1061,17 +1227,19 @@ def device_kernel_ms(fn, kernels, iters: int = 20, cold: bool = False):
         if best is None or (min(c for _, c in seen.values())
                             > min(c for _, c in best.values())):
             best = seen
-        if all(count == iters for _, count in seen.values()):
+        if all(count == iters * per_call for _, count in seen.values()):
             break
-    per_call = 0.0
+    if recorded is not None:
+        recorded.update({kernel: c for kernel, (_, c) in best.items()})
+    ms = 0.0
     for kernel, (total, count) in best.items():
-        if count != iters:
+        if count != iters * per_call:
             log(f"profile of {kernel} ({'cold' if cold else 'warm'}) "
                 f"recorded {count} launches of {iters} calls")
         if not total:
             return None
-        per_call += total / count / 1e3
-    return per_call
+        ms += total / count * per_call / 1e3
+    return ms
 
 
 def host_ms(fn, iters: int = 50) -> float:
@@ -1092,7 +1260,7 @@ def main_path_inputs(shapes: dict, read_inputs: dict) -> dict:
 
     rng = np.random.RandomState(11)
     (n_dz,) = top("delta_zigzag")
-    (n_uv,) = top("uvarint_encode64")
+    (n_uv,) = top("uvarint_pack64")
     c, r = top("fit_columns")
     n_rb, k_rb = top("row_boundaries")
     stream, t_dg = read_inputs["digram_codes"]
@@ -1101,6 +1269,7 @@ def main_path_inputs(shapes: dict, read_inputs: dict) -> dict:
     return {
         "delta_zigzag": (tick_stream(n_dz, "mono", 1).view(np.int32), ()),
         "uvarint_encode64": (ragged_u64(n_uv, 2).view(np.int64), ()),
+        "uvarint_pack64": (ragged_u64(n_uv, 2).view(np.int64), ()),
         "fit_columns": (fit_matrix(c, r, 3, 0), ()),
         "row_boundaries": (rng.randint(0, 3, size=(n_rb, k_rb))
                            .astype(np.int64), ()),
@@ -1108,6 +1277,11 @@ def main_path_inputs(shapes: dict, read_inputs: dict) -> dict:
         "histogram": (all_terms, (n_bins,)),
         "delta_zigzag_varint": (ticks.astype(np.uint32).view(np.int32), ()),
     }
+
+
+def varint_bytes(k, x: torch.Tensor) -> int:
+    """Bytes of the uvarints of the u64 values ``x`` (int64 bit patterns)."""
+    return int(k.de_ref.uvarint_encode64_ref(x)[0].sum())
 
 
 DE_SRC = "src/repro_torch/kernels/csrc/delta_encode.cu"
@@ -1131,6 +1305,13 @@ def kernel_report(k, p, shapes: dict, launches: dict,
             k.de.uvarint_encode64, k.de_ref.uvarint_encode64_ref, DE_SRC,
             f"{DE_TPU}:155", "uvarint_encode64_kernel",
             lambda x: 22 * x.numel(), lambda x: 60 * x.numel(), None),
+        # bytes: the values in, the packed stream out (its length is what
+        # these values need)
+        "uvarint_pack64": (
+            k.de.uvarint_pack64, k.de_ref.uvarint_pack64_ref, DE_SRC,
+            f"{DE_TPU}:155", "uvarint_pack64_kernel",
+            lambda x: 8 * x.numel() + varint_bytes(k, x),
+            lambda x: 6 * x.numel() + 4 * varint_bytes(k, x), None),
         "fit_columns": (
             k.de.fit_columns, k.de_ref.fit_columns_ref, DE_SRC,
             f"{DE_TPU}:202", "fit_columns_kernel",
@@ -1155,10 +1336,12 @@ def kernel_report(k, p, shapes: dict, launches: dict,
             f"{GS_TPU}:113", "digram_codes_kernel",
             lambda x, t: 16 * x.numel(), lambda x, t: 2 * x.numel(), None),
     }
+    # the encode dispatch each kernel serves (uvarint_encode64 serves none
+    # now: pack_uvarints_batch launches uvarint_pack64)
     host_calls = {
-        "delta_zigzag": lambda a, b: p.eb.delta_zigzag(
-            a.view(np.uint32).astype(np.int64), b),
-        "uvarint_encode64": lambda a, b: p.eb.pack_uvarints_batch(
+        "delta_zigzag": lambda a, b: p.eb.delta_zigzag(a.view(np.uint32), b),
+        "uvarint_encode64": None,
+        "uvarint_pack64": lambda a, b: p.eb.pack_uvarints_batch(
             a.view(np.uint64), b),
         "fit_columns": lambda a, b: p.eb.fit_classify(a, b),
         "row_boundaries": lambda a, b: p.eb.run_boundaries(a, b),
@@ -1207,18 +1390,22 @@ def kernel_report(k, p, shapes: dict, launches: dict,
             "shape": list(x.shape) + list(extra), "device_ms": device_ms,
             "device_cold_ms": device_cold_ms,
             "h2d_ms": h2d_ms, "d2h_ms": d2h_ms,
-            "dispatch_cuda_ms": host_ms(lambda: call(host, "cuda", *extra),
-                                        iters=10),
-            "dispatch_numpy_ms": host_ms(lambda: call(host, "numpy", *extra),
-                                         iters=10),
+            "d2h_bytes": sum(o.numel() * o.element_size() for o in outs),
+            "main_path": call is not None,
+            "dispatch_cuda_ms": None if call is None else host_ms(
+                lambda: call(host, "cuda", *extra), iters=10),
+            "dispatch_numpy_ms": None if call is None else host_ms(
+                lambda: call(host, "numpy", *extra), iters=10),
         })
         log(f"{name} at {rows[-1]['shape']}: kernel {ms:.4f} ms per call "
             f"(device {device_ms} ms, L2 flushed {device_cold_ms} ms), "
             f"plain {plain_ms:.4f} ms, library {library_ms} ms, bound "
             f"{rows[-1]['bound_ms']:.6f} ms, "
-            f"H2D {h2d_ms:.4f} ms, D2H {d2h_ms:.4f} ms; dispatch cuda "
-            f"{rows[-1]['dispatch_cuda_ms']:.4f} ms vs numpy "
-            f"{rows[-1]['dispatch_numpy_ms']:.4f} ms")
+            f"H2D {h2d_ms:.4f} ms, D2H {d2h_ms:.4f} ms of "
+            f"{rows[-1]['d2h_bytes']} B; dispatch cuda "
+            f"{rows[-1]['dispatch_cuda_ms']} ms vs numpy "
+            f"{rows[-1]['dispatch_numpy_ms']} ms"
+            + ("" if call else " (not on the main path)"))
     return rows
 
 
@@ -1276,11 +1463,11 @@ class MeasuredCall:
     ``peak``."""
 
     def __init__(self, shape, args, kwargs, kernel, plain, nbytes, nops,
-                 peak, iters, scale, library=None):
+                 peak, iters, scale, library=None, per_call=1):
         self.shape, self.args, self.kwargs = shape, args, kwargs
         self.kernel, self.plain, self.library = kernel, plain, library
         self.nbytes, self.nops, self.peak = nbytes, nops, peak
-        self.iters, self.scale = iters, scale
+        self.iters, self.scale, self.per_call = iters, scale, per_call
 
     def _first(self, out):
         return out[0] if isinstance(out, tuple) else out
@@ -1302,6 +1489,7 @@ class MeasuredCall:
         del ref
         bytes_ms = self.nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = self.nops / self.peak * 1e3
+        recorded, prof_iters = {}, 20
         return {
             "max_abs_err": err, "ms": cuda_ms(self.run, iters=self.iters),
             "plain_ms": cuda_ms(plain, iters=max(self.iters // 4, 5)),
@@ -1309,8 +1497,16 @@ class MeasuredCall:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "shape": self.shape,
             "options": plain_kw, "dtype": "bfloat16",
-            "device_ms": device_kernel_ms(self.run, kname),
-            "device_cold_ms": device_kernel_ms(self.run, kname, cold=True),
+            "device_ms": device_kernel_ms(self.run, kname, prof_iters,
+                                          per_call=self.per_call,
+                                          recorded=recorded),
+            # launches of each kernel the warm profile recorded, of
+            # prof_iters * per_call
+            "device_launches": {"recorded": recorded,
+                                "of": prof_iters * self.per_call},
+            "device_cold_ms": device_kernel_ms(self.run, kname, prof_iters,
+                                               cold=True,
+                                               per_call=self.per_call),
             "bytes": self.nbytes, "operations": self.nops,
         }
 
@@ -1319,12 +1515,15 @@ class MeasuredCall:
         return cuda_ms(lambda: self.kernel(*args, **self.kwargs), iters=5)
 
 
-def model_kernel_report(k, s, shapes: dict, launches: dict) -> list:
+def model_kernel_report(k, s, shapes: dict, launches: dict,
+                        ssd_memory: dict) -> list:
     """Rows of the kernels line for flash attention and RMSNorm at the
     largest shapes the qwen3-32b serve run gave them (bf16, causal), and
     for the SSD scan at the mamba2-370m serve prefill's shape (bf16), with
     the launch counts of those runs' main paths (``launches``: arch ->
-    counts; every run's count is kept in ``launches_by_run``)."""
+    counts; every run's count is kept in ``launches_by_run``).  The SSD
+    scan's row also carries the prime prefill's shape (Q 1, in groups) and
+    the memory checks of the kernels phase (``ssd_memory``)."""
     import torch.nn.functional as F
 
     def top(name):
@@ -1355,6 +1554,15 @@ def model_kernel_report(k, s, shapes: dict, launches: dict) -> list:
             "flash_attention saw no call at the hymba-1.5b serve shape")
     hshape = ssd_serve_shape(s, "hymba-1.5b")
     hargs = ssd_inputs(*hshape, bf, 27)
+    pshape = ssd_prompt_shape(PRIME_PROMPT)
+    require(pshape[:5] in shapes.get("ssd_scan", {}),
+            f"ssd_scan saw no call at the prime prefill's shape {pshape}")
+    G, _ = k.ssd.scratch_plan(*pshape)
+    prime_call = MeasuredCall(
+        list(pshape), ssd_inputs(*pshape, bf, 35), {"return_state": True},
+        k.ssd.ssd_scan, k.ssd_ref.ssd_scan_chunked_ref,
+        *ssd_work(pshape, 2), BF16_TENSOR_OPS_PER_S, 5, SSD_TOL_SCALE,
+        per_call=-(-pshape[1] // G))
     # name: (source, TPU kernel, device kernel names, run of the launches,
     #        the main shape's MeasuredCall, hymba-1.5b's MeasuredCall)
     specs = {
@@ -1418,6 +1626,14 @@ def model_kernel_report(k, s, shapes: dict, launches: dict) -> list:
             # the f32 path (the CUDA-core kernel) at both serve shapes
             for arch, call in ((run, main_call), ("hymba-1.5b", other_call)):
                 f32_ms[f"{name} {arch}"] = call.f32_ms()
+        if name == "ssd_scan":
+            row["prime_shape"] = {
+                "prompt": PRIME_PROMPT, "planned_groups": prime_call.per_call,
+                **prime_call.measure(kname, f"{name} at the prime prefill "
+                                     f"shape")}
+            row["memory_by_prompt"] = ssd_memory
+            log(f"ssd_scan at the prime prefill shape {pshape} bf16 "
+                f"({prime_call.per_call} groups): {row['prime_shape']}")
         rows.append(row)
     log("f32 paths (CUDA-core kernels) at the serve shapes, ms per call: "
         + json.dumps(f32_ms))
@@ -1440,7 +1656,7 @@ def main() -> int:
     sys.path.insert(0, src)
     import repro_torch.core.apis  # noqa: F401  (populate the registry)
     from repro_torch.core import encode_backend as eb
-    from repro_torch.core import recorder
+    from repro_torch.core import recorder, streaming
     from repro_torch.core.apis import posix
     from repro_torch.core.comm import run_thread_world
     from repro_torch.core.patterns import IntraPatternTracker
@@ -1468,10 +1684,14 @@ def main() -> int:
     k = SimpleNamespace(de=de_ops, de_ref=de_ref, gs=gs_ops, gs_ref=gs_ref,
                         fa=fa_ops, fa_ref=fa_ref, rn=rn_ops, rn_ref=rn_ref,
                         ssd=ssd_ops, ssd_ref=ssd_ref)
-    wrappers = ((de_ops, "delta_zigzag"), (de_ops, "uvarint_encode64"),
+    # the tracer's kernels; uvarint_encode64 (lens and byte planes) stays
+    # the direct counterpart of the Pallas kernel, but the main path packs
+    # with uvarint_pack64 and must not launch it
+    wrappers = ((de_ops, "delta_zigzag"), (de_ops, "uvarint_pack64"),
                 (de_ops, "fit_columns"), (gs_ops, "row_boundaries"),
                 (de_ops, "delta_zigzag_varint"), (gs_ops, "histogram"),
                 (gs_ops, "digram_codes"))
+    counterparts = ((de_ops, "uvarint_encode64"),)
     model_wrappers = ((fa_ops, "flash_attention"), (rn_ops, "rmsnorm"),
                       (ssd_ops, "ssd_scan"))
     p = SimpleNamespace(eb=eb, recorder=recorder, posix=posix,
@@ -1506,7 +1726,7 @@ def main() -> int:
         build_s = phase_build(_build)
     ssm_calls = ssm_serve_kernel_calls(srv)
     with Phase("kernels"):
-        phase_kernels(k, ssm_calls)
+        ssd_memory = phase_kernels(k, ssm_calls)
 
     # the main paths: the tracer's (phases 3-6) and the serving runs of
     # phases 7-8; counts start at 0 just before each and are read just
@@ -1516,7 +1736,7 @@ def main() -> int:
     shapes = collections.defaultdict(collections.Counter)
     lock = threading.Lock()
     originals = []
-    for mod, name in wrappers + model_wrappers:
+    for mod, name in wrappers + counterparts + model_wrappers:
         real = getattr(mod, name)
 
         def shim(*args, _real=real, _name=name, **kw):
@@ -1525,6 +1745,30 @@ def main() -> int:
             return _real(*args, **kw)
         originals.append((mod, name, real))
         setattr(mod, name, shim)
+    # the calls that must launch one kernel each: every varint pack on
+    # cuda, and every streaming flush on cuda, whatever its blocks
+    packs, flushes = collections.Counter(), []
+
+    def pack_shim(values, backend, _real=eb.pack_uvarints_batch):
+        if backend == "cuda" and len(values):
+            with lock:
+                packs["cuda"] += 1
+        return _real(values, backend)
+
+    def flush_shim(ticks, block_records, backend=None,
+                   _real=streaming.compress_timestamps_blocked):
+        before = _build.launch_counts().get("delta_zigzag", 0)
+        blocks = _real(ticks, block_records, backend=backend)
+        after = _build.launch_counts().get("delta_zigzag", 0)
+        if len(ticks) and eb.resolve(backend, len(ticks)) == "cuda":
+            flushes.append((len(ticks), block_records, len(blocks),
+                            after - before))
+        return blocks
+    for mod, name, fn in ((eb, "pack_uvarints_batch", pack_shim),
+                          (streaming, "compress_timestamps_blocked",
+                           flush_shim)):
+        originals.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
     _build.reset_launches()
     try:
         with Phase("ior"):
@@ -1537,22 +1781,41 @@ def main() -> int:
             read_inputs = phase_read(p)
         torch.cuda.synchronize()
         launches = _build.launch_counts()
+        n_packs, main_flushes = packs["cuda"], list(flushes)
         serves = {}
         with Phase("serve"):
             serves[SERVE_ARCH] = phase_serve(srv, SERVE_SPECS[0])
         with Phase("serve_ssm"):
             for spec in SERVE_SPECS[1:]:
                 serves[spec.arch] = phase_serve(srv, spec)
+            prime = prime_prefill(srv, SERVE_SPECS[1])
     finally:
         for mod, name, real in originals:
             setattr(mod, name, real)
     serve_counts = {a: r["launches"] for a, r in serves.items()}
+    serve_counts[f"{prime['arch']}@{PRIME_PROMPT}"] = prime["launches"]
     log(f"main-path launches, phases 3-6: {launches}; serve runs: "
         f"{serve_counts}")
     for _mod, name in wrappers:
         require(launches.get(name, 0) > 0,
                 f"{name} was not launched on the main path")
         log(f"{name} main-path shapes: {dict(shapes[name].most_common(4))}")
+    for _mod, name in counterparts:
+        require(launches.get(name, 0) == 0,
+                f"{name} was launched on the main path")
+    require(launches.get("uvarint_pack64", 0) == n_packs,
+            f"{n_packs} varint packs on cuda launched uvarint_pack64 "
+            f"{launches.get('uvarint_pack64', 0)} times")
+    require(bool(main_flushes) and all(n == 1 for *_, n in main_flushes),
+            f"streaming flushes on cuda launched delta_zigzag "
+            f"{[n for *_, n in main_flushes]} times each")
+    require(any(b > 1 for _, _, b, _ in main_flushes),
+            "no streaming flush on cuda wrote more than one block")
+    log(f"main path: {n_packs} varint packs on cuda, one uvarint_pack64 "
+        f"launch each, no uvarint_encode64; {len(main_flushes)} streaming "
+        f"flushes on cuda ((records, records a block, blocks): flushes "
+        f"{sorted(collections.Counter(f[:3] for f in main_flushes).items())}"
+        f"), one delta_zigzag launch each")
     for _mod, name in model_wrappers:
         runs = [a for a, c in serve_counts.items() if c.get(name, 0) > 0]
         require(bool(runs), f"{name} was not launched on a serve main path")
@@ -1566,10 +1829,11 @@ def main() -> int:
     log("serve summary: " + json.dumps(
         {a: {k: v for k, v in r.items() if k != "top_kernels"}
          for a, r in serves.items()}))
+    log("prime prefill summary: " + json.dumps(prime))
 
     with Phase("report"):
         rows = kernel_report(k, p, shapes, launches, read_inputs)
-        rows += model_kernel_report(k, srv, shapes, serve_counts)
+        rows += model_kernel_report(k, srv, shapes, serve_counts, ssd_memory)
     shutil.rmtree(WORK, ignore_errors=True)
     log(f"total {time.monotonic() - t_all:.1f} s (build {build_s:.2f} s)")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -116,46 +116,61 @@ def _to_device(a: np.ndarray, backend: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _delta_zigzag_py(flat: np.ndarray) -> np.ndarray:
-    """Scalar reference: first-order delta wrapped mod 2^32 -> zigzag u32."""
+def _as_u32(flat: np.ndarray) -> np.ndarray:
+    """Contiguous u32 view of a flat integer array; other integer types are
+    cut to their low 32 bits, which is all a delta mod 2^32 reads."""
+    flat = np.ascontiguousarray(flat).reshape(-1)
+    return flat if flat.dtype == np.uint32 else flat.astype(np.uint32)
+
+
+def _delta_zigzag_py(flat: np.ndarray, segment: int) -> np.ndarray:
+    """Scalar reference: first-order delta wrapped mod 2^32 -> zigzag u32,
+    restarting from 0 at every multiple of ``segment``."""
     out = np.empty(len(flat), np.uint32)
     prev = 0
     for i, v in enumerate(flat.tolist()):
-        d = v if i == 0 else v - prev
+        d = v if i == 0 or (segment and i % segment == 0) else v - prev
         prev = v
         d = ((d + (1 << 31)) % (1 << 32)) - (1 << 31)
         out[i] = ((d << 1) ^ (d >> 63)) & 0xFFFFFFFF
     return out
 
 
-def _delta_zigzag_np(flat: np.ndarray) -> np.ndarray:
-    flat = flat.astype(np.int64)        # wrap arithmetic needs headroom
-    deltas = np.empty_like(flat)
-    deltas[0] = flat[0]
-    deltas[1:] = flat[1:] - flat[:-1]
-    deltas = ((deltas + (1 << 31)) % (1 << 32)) - (1 << 31)
-    zz = (deltas << 1) ^ (deltas >> 63)
-    return (zz & 0xFFFFFFFF).astype(np.uint32)
+def _delta_zigzag_np(u: np.ndarray, segment: int) -> np.ndarray:
+    """The same in u32 arithmetic, which wraps mod 2^32 as the kernel's
+    does; the zigzag shifts run on the int32 view."""
+    d = u.copy()
+    d[1:] -= u[:-1]
+    if segment:
+        d[::segment] = u[::segment]
+    s = d.view(np.int32)
+    return ((s << 1) ^ (s >> 31)).view(np.uint32)
 
 
-def _delta_zigzag_torch(flat: np.ndarray, backend: str) -> np.ndarray:
-    x = _to_device(flat.astype(np.uint32).view(np.int32), backend)
-    return _de.delta_zigzag(x).cpu().numpy().view(np.uint32)
+def _delta_zigzag_torch(u: np.ndarray, backend: str,
+                        segment: int) -> np.ndarray:
+    x = _to_device(u.view(np.int32), backend)
+    return _de.delta_zigzag(x, segment).cpu().numpy().view(np.uint32)
 
 
-def delta_zigzag(flat: np.ndarray, backend: Optional[str] = None
-                 ) -> np.ndarray:
-    """Flat int64 tick stream -> zigzag'd u32 deltas, backend-dispatched.
-    All backends are bit-identical (the kernel's u32 arithmetic is the
-    mod-2^32 wrap of the reference)."""
-    if flat.size == 0:
+def delta_zigzag(flat: np.ndarray, backend: Optional[str] = None,
+                 segment: int = 0) -> np.ndarray:
+    """Flat tick stream (u32, or any integer type, read mod 2^32) ->
+    zigzag'd u32 deltas, backend-dispatched.  Element i is taken against 0
+    where ``i % segment == 0`` (``segment`` 0: only element 0), so one call
+    encodes every block of a flush.  All backends are bit-identical (the
+    kernel's u32 arithmetic is the mod-2^32 wrap of the reference)."""
+    if segment < 0:
+        raise ValueError(f"segment must be >= 0, got {segment}")
+    u = _as_u32(flat)
+    if u.size == 0:
         return np.empty((0,), np.uint32)
-    eff = resolve(backend, flat.size)
+    eff = resolve(backend, u.size)
     if eff == "python":
-        return _delta_zigzag_py(flat)
+        return _delta_zigzag_py(u, segment)
     if eff in ("torch", "cuda"):
-        return _delta_zigzag_torch(flat, eff)
-    return _delta_zigzag_np(flat)
+        return _delta_zigzag_torch(u, eff, segment)
+    return _delta_zigzag_np(u, segment)
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +184,8 @@ def _emit_varint_bytes(lens: np.ndarray, planes: np.ndarray) -> bytes:
     ``planes`` is (n_planes, n): plane j holds byte j of every element with
     its continuation bit already set; ``lens`` the per-element byte counts.
     The exclusive-scan offsets + masked scatter are the host half of the
-    two-pass byte-emit (the kernels produce lens/planes, shapes static)."""
+    two-pass byte-emit of the ``numpy`` packer and the fused tick encode
+    (``delta_zigzag_varint`` produces lens/planes, shapes static)."""
     lens = np.asarray(lens, np.int64)
     n = len(lens)
     n_planes = planes.shape[0]
@@ -198,13 +214,6 @@ def _uvarint_planes_np(v: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return lens, np.where(cont, b | 0x80, b)
 
 
-def _uvarint_planes_torch(v: np.ndarray, backend: str
-                          ) -> Tuple[np.ndarray, np.ndarray]:
-    lens, planes = _de.uvarint_encode64(_to_device(v.view(np.int64),
-                                                   backend))
-    return lens.cpu().numpy().astype(np.int64), planes.cpu().numpy()
-
-
 def _to_u64(values: Sequence[int]) -> np.ndarray:
     try:
         return np.asarray(values, dtype=np.uint64)
@@ -218,15 +227,17 @@ def pack_uvarints_batch(values: Sequence[int], backend: str) -> bytes:
     """Batched uvarint packing, byte-identical to the ``write_uvarint``
     loop; values outside u64 raise :class:`encoding.VarintRangeError` on
     the host, before anything reaches a kernel (arbitrary-precision ints
-    keep their own tagged path through ``encode_value``)."""
+    keep their own tagged path through ``encode_value``).  ``torch`` and
+    ``cuda`` call the ``uvarint_pack64`` wrapper: on the card one launch
+    packs the bytes, and only those come back; ``numpy`` scatters byte
+    planes on the host."""
     v = _to_u64(values)
     if v.size == 0:
         return b""
     if backend in ("torch", "cuda"):
-        lens, planes = _uvarint_planes_torch(v, backend)
-    else:
-        lens, planes = _uvarint_planes_np(v)
-    return _emit_varint_bytes(lens, planes)
+        packed = _de.uvarint_pack64(_to_device(v.view(np.int64), backend))
+        return packed.cpu().numpy().tobytes()
+    return _emit_varint_bytes(*_uvarint_planes_np(v))
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +277,7 @@ def encode_ticks_varint(ticks: np.ndarray, backend: Optional[str] = None
         _zz, lens, planes = _de.delta_zigzag_varint(x)
         return _emit_varint_bytes(lens.cpu().numpy().astype(np.int64),
                                   planes.cpu().numpy())
-    zz = _delta_zigzag_np(flat).astype(np.uint64)
+    zz = _delta_zigzag_np(_as_u32(flat), 0).astype(np.uint64)
     lens, planes = _uvarint_planes_np(zz)
     return _emit_varint_bytes(lens, planes[:5])
 

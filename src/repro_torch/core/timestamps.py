@@ -103,25 +103,26 @@ class TimestampBuffer:
         return arr
 
 
-def delta_zigzag_encode(ticks: np.ndarray,
-                        backend: Optional[str] = None) -> np.ndarray:
+def delta_zigzag_encode(ticks: np.ndarray, backend: Optional[str] = None,
+                        segment: int = 0) -> np.ndarray:
     """Flattened interleaved (entry, exit) stream -> delta -> zigzag u32.
 
     Deltas are wrapped into signed 32-bit range (mod 2^32) BEFORE zigzag:
     ticks are u32, so a raw delta can need 33 bits; the wrap keeps the
     encoding exactly 4 bytes and the mod-2^32 cumsum decode is lossless.
     (This also matches the CUDA kernel's u32 arithmetic bit-for-bit.)
+    With ``segment`` the stream restarts from 0 at every multiple of
+    ``segment`` elements: the blocks of :func:`compress_timestamps_blocked`
+    in one call.
 
     ``backend`` selects the python/numpy/torch/cuda implementation (see
-    ``encode_backend``); output is bit-identical across all of them.
+    ``encode_backend``); output is bit-identical across all of them.  A
+    u32 tick buffer goes to the backends as it is.
     """
-    flat = ticks.reshape(-1).astype(np.int64)
-    if flat.size == 0:
-        return np.empty((0,), np.uint32)
     # timestamps are monotone per column but interleaved entry/exit deltas
     # may be negative -> zigzag
     from . import encode_backend as _eb
-    return _eb.delta_zigzag(flat, backend)
+    return _eb.delta_zigzag(ticks.reshape(-1), backend, segment)
 
 
 def delta_zigzag_decode(zz: np.ndarray, ncols: int = 2) -> np.ndarray:
@@ -177,14 +178,18 @@ def compress_timestamps_blocked(ticks: np.ndarray,
     if block_records <= 0:
         raise ValueError("block_records must be positive")
     sized = ticks.ndim == 2 and ticks.shape[1] >= 3
+    ncols = ticks.shape[1] if ticks.ndim == 2 else 1
+    # every block's deltas in one call: each restarts at its first record
+    zz = delta_zigzag_encode(ticks, backend, segment=block_records * ncols)
     blocks: List[TsBlock] = []
     for s in range(0, len(ticks), block_records):
         blk = ticks[s : s + block_records]
         t_min = int(blk[:, 0].astype(np.int64).min())
         t_max = int(effective_exit(blk).max())
         n_bytes = int(blk[:, 2].astype(np.int64).sum()) if sized else None
-        blocks.append((compress_timestamps(blk, backend), len(blk), t_min,
-                       t_max, n_bytes))
+        raw = zz[s * ncols : (s + len(blk)) * ncols].astype("<u4").tobytes()
+        blocks.append((zlib.compress(raw, level=6), len(blk), t_min, t_max,
+                       n_bytes))
     return blocks
 
 

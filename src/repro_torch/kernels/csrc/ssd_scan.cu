@@ -67,7 +67,14 @@
 // at a time where the addresses allow and element by element otherwise;
 // dt and da are contiguous (B, nc, Q, nh).  Scratch (from the wrapper):
 // the chunk states S_c (f32), the entering states h_c (bf16 hi and lo),
-// cs (B, nc, nh, Q) and tot (B, nc, nh).
+// cs (B, G, nh, Q) and tot (B, G, nh) of one group of G chunks.  The
+// three passes run group after group, and the state pass of a group
+// starts from the f32 state the previous one ended with (in hfin), so the
+// scratch is bounded whatever nc is (a prime prompt length gives Q = 1 and
+// nc = S), the grids stay within 65,535 (pass A has G on y, pass C B * G
+// on z), and the sums are those of one group: grouping cuts only the
+// state pass's walk over the chunks, and the state crosses a group
+// boundary in f32 as it crosses a chunk boundary.
 //
 // Where the numbers depart from the Pallas kernel's: the sums over a
 // chunk's keys, over chunks (the state passing) and over ns run in other
@@ -98,11 +105,12 @@ constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
 
 
 struct Dims {
-  int nc, Q, nh, hd, ns;
+  int nc, Q, nh, hd, ns;       // nc: chunks of a launch (of a group, bf16)
   int64_t xsb, xsc, xsq, xsh;  // x strides in elements (unit along hd)
   int64_t bsb, bsc, bsq;       // b strides (unit along ns)
   int64_t csb, csc, csq;       // c strides (unit along ns)
   bool xvec, bvec, cvec;       // rows of x, b, c 16-byte aligned (bf16)
+  int ncs;                     // chunks of the call: dt, da, y's batch stride
 };
 
 // Shared-memory layout, in floats.  b and c rows are padded to a multiple
@@ -496,8 +504,8 @@ __global__ void __launch_bounds__(kTC, 2)
 
   const int head = blockIdx.x, ch = blockIdx.y, bi = blockIdx.z;
   const int Q = d.Q, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t row0 = ((int64_t)bi * d.nc + ch) * Q;  // dt/da row of q=0
-  const int64_t bch = ((int64_t)bi * d.nc + ch) * d.nh + head;
+  const int64_t row0 = ((int64_t)bi * d.ncs + ch) * Q;  // dt/da row of q=0
+  const int64_t bch = ((int64_t)bi * d.nc + ch) * d.nh + head;  // scratch
   const bf16* xc = x + bi * d.xsb + ch * d.xsc + head * d.xsh;
   const bf16* bc = b + bi * d.bsb + ch * d.bsc;
   const int n_kt = (Q + kTT - 1) / kTT;
@@ -654,20 +662,21 @@ __global__ void __launch_bounds__(kTC, 2)
       }
 }
 
-// B: h_0 = 0, h_{c+1} = exp(tot_c) h_c + S_c; h_c, the state entering
-// chunk c, as bf16 hi and lo halves into hl (per (batch, chunk, head):
-// n_state hi, then n_state lo), the final state into hfin (if not null).
-// One thread per (batch, head, entry).
+// B: h_0 = hin (0 if null), h_{c+1} = exp(tot_c) h_c + S_c; h_c, the
+// state entering chunk c, as bf16 hi and lo halves into hl (per (batch,
+// chunk, head): n_state hi, then n_state lo), the final state into hfin
+// (if not null).  One thread per (batch, head, entry); hin may be hfin,
+// since each thread reads its entry before it writes it.
 __global__ void __launch_bounds__(256)
     ssd_state_pass(const float* __restrict__ st,
                    const float* __restrict__ tot, bf16* __restrict__ hl,
-                   float* __restrict__ hfin, int B, int nc, int nh,
+                   const float* hin, float* hfin, int B, int nc, int nh,
                    int64_t n_state) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (int64_t)B * nh * n_state) return;
   const int64_t bh = e / n_state, i = e - bh * n_state;
   const int64_t bi = bh / nh, head = bh - bi * nh;
-  float h = 0.f;
+  float h = hin != nullptr ? hin[bh * n_state + i] : 0.f;
   for (int c0 = 0; c0 < nc; c0 += 8) {
     // the loads of 8 chunks first, so their latencies overlap
     float s[8], e[8];
@@ -720,8 +729,8 @@ __global__ void __launch_bounds__(kTC, 2)
   const int ti = blockIdx.x, tj = nqt - 1 - ti;  // the pair, ti <= tj
   const int head = blockIdx.y;
   const int bi = blockIdx.z / d.nc, ch = blockIdx.z % d.nc;
-  const int64_t row0 = ((int64_t)bi * d.nc + ch) * Q;
-  const int64_t bch = row0 / Q * d.nh + head;
+  const int64_t row0 = ((int64_t)bi * d.ncs + ch) * Q;  // dt/y row of q=0
+  const int64_t bch = ((int64_t)bi * d.nc + ch) * d.nh + head;  // scratch
   const bf16* xc = x + bi * d.xsb + ch * d.xsc + head * d.xsh;
   const bf16* bc = b + bi * d.bsb + ch * d.bsc;
   const bf16* cc = c + bi * d.csb + ch * d.csc;
@@ -916,11 +925,12 @@ __global__ void __launch_bounds__(kTC, 2)
     }
 }
 
+// The three passes over d.nc chunks, from the state hin (null: zeros).
 template <int NSP, int HDP>
 cudaError_t launch_bf16(const void* x, const void* b, const void* c,
-                        const void* dt, const void* da, void* y, void* hfin,
-                        void* scratch, int64_t B, const Dims& d,
-                        cudaStream_t stream) {
+                        const void* dt, const void* da, void* y,
+                        const float* hin, void* hfin, void* scratch,
+                        int64_t B, const Dims& d, cudaStream_t stream) {
   using P = Pass<NSP, HDP>;
   const int64_t n_state = (int64_t)d.ns * d.hd;
   const int64_t n_bch = B * d.nc * d.nh;
@@ -944,7 +954,7 @@ cudaError_t launch_bf16(const void* x, const void* b, const void* c,
   if (err != cudaSuccess) return err;
   const int64_t n = B * d.nh * n_state;
   ssd_state_pass<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      st, tot, hl, (float*)hfin, (int)B, d.nc, d.nh, n_state);
+      st, tot, hl, hin, (float*)hfin, (int)B, d.nc, d.nh, n_state);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   kc<<<dim3((unsigned)((d.Q + 2 * kTT - 1) / (2 * kTT)), (unsigned)d.nh,
@@ -957,14 +967,48 @@ cudaError_t launch_bf16(const void* x, const void* b, const void* c,
 
 template <int NSP>
 cudaError_t launch_hd(const void* x, const void* b, const void* c,
-                      const void* dt, const void* da, void* y, void* hfin,
-                      void* scratch, int64_t B, const Dims& d,
-                      cudaStream_t s) {
+                      const void* dt, const void* da, void* y,
+                      const float* hin, void* hfin, void* scratch, int64_t B,
+                      const Dims& d, cudaStream_t s) {
   if (d.hd <= 16)
-    return launch_bf16<NSP, 16>(x, b, c, dt, da, y, hfin, scratch, B, d, s);
+    return launch_bf16<NSP, 16>(x, b, c, dt, da, y, hin, hfin, scratch, B, d,
+                                s);
   if (d.hd <= 64)
-    return launch_bf16<NSP, 64>(x, b, c, dt, da, y, hfin, scratch, B, d, s);
-  return launch_bf16<NSP, 128>(x, b, c, dt, da, y, hfin, scratch, B, d, s);
+    return launch_bf16<NSP, 64>(x, b, c, dt, da, y, hin, hfin, scratch, B, d,
+                                s);
+  return launch_bf16<NSP, 128>(x, b, c, dt, da, y, hin, hfin, scratch, B, d,
+                               s);
+}
+
+// bf16: the chunks in groups of at most ``group``, one group after
+// another on the stream, each group's passes from the state the previous
+// group's state pass left in hfin; scratch holds one group.
+cudaError_t launch_groups(const void* x, const void* b, const void* c,
+                          const void* dt, const void* da, void* y,
+                          void* hfin, void* scratch, int64_t B, Dims d,
+                          int64_t group, cudaStream_t s) {
+  const int64_t nc = d.ncs, rows = (int64_t)d.Q * d.nh;
+  cudaError_t err = cudaSuccess;
+  for (int64_t c0 = 0; c0 < nc && err == cudaSuccess; c0 += group) {
+    d.nc = (int)(nc - c0 < group ? nc - c0 : group);
+    const bf16* xg = (const bf16*)x + c0 * d.xsc;
+    const bf16* bg = (const bf16*)b + c0 * d.bsc;
+    const bf16* cg = (const bf16*)c + c0 * d.csc;
+    const float* dtg = (const float*)dt + c0 * rows;
+    const float* dag = (const float*)da + c0 * rows;
+    bf16* yg = (bf16*)y + c0 * rows * d.hd;
+    const float* hin = c0 ? (const float*)hfin : nullptr;
+    if (d.ns <= 16)
+      err = launch_hd<16>(xg, bg, cg, dtg, dag, yg, hin, hfin, scratch, B, d,
+                          s);
+    else if (d.ns <= 64)
+      err = launch_hd<64>(xg, bg, cg, dtg, dag, yg, hin, hfin, scratch, B, d,
+                          s);
+    else
+      err = launch_hd<128>(xg, bg, cg, dtg, dag, yg, hin, hfin, scratch, B,
+                           d, s);
+  }
+  return err;
 }
 
 bool rows16(const void* base, int64_t stride, int n) {
@@ -982,14 +1026,16 @@ const char* repro_error_string(int err) {
 // x (B, nc, Q, nh, hd) and y (contiguous, same shape); b, c (B, nc, Q, ns);
 // dt, da (B, nc, Q, nh) f32 contiguous; hfin (B, nh, ns, hd) f32 or null.
 // Strides are in elements; x, b and c have unit stride in their last
-// dimension.  dtype (of x, b, c and y) 0: float32, 1: bfloat16.  scratch
-// (bf16 only): B * nc * nh * (2 * ns * hd + Q + 1) floats.
+// dimension.  dtype (of x, b, c and y) 0: float32, 1: bfloat16.  bf16 only:
+// the chunks go in groups of at most ``group`` (B * group <= 65535; hfin
+// not null when group < nc, as it carries the state between groups), and
+// scratch holds B * group * nh * (2 * ns * hd + Q + 1) floats.
 int ssd_scan(const void* x, const void* b, const void* c, const void* dt,
              const void* da, void* y, void* hfin, void* scratch, int64_t B,
              int64_t nc, int64_t Q, int64_t nh, int64_t hd, int64_t ns,
              int64_t xsb, int64_t xsc, int64_t xsq, int64_t xsh, int64_t bsb,
              int64_t bsc, int64_t bsq, int64_t csb, int64_t csc, int64_t csq,
-             int64_t dtype, void* stream) {
+             int64_t group, int64_t dtype, void* stream) {
   if (B < 1 || nc < 1 || Q < 1 || nh < 1 || hd < 1 || ns < 1 || B > 65535 ||
       nh > 65535 || Q > 4096 || hd > 128 || ns > 128)
     return (int)cudaErrorInvalidValue;
@@ -999,15 +1045,14 @@ int ssd_scan(const void* x, const void* b, const void* c, const void* dt,
                rows16(x, xsq, (int)hd) && xsb % 8 == 0 && xsc % 8 == 0 &&
                    xsh % 8 == 0,
                rows16(b, bsq, (int)ns) && bsb % 8 == 0 && bsc % 8 == 0,
-               rows16(c, csq, (int)ns) && csb % 8 == 0 && csc % 8 == 0};
+               rows16(c, csq, (int)ns) && csb % 8 == 0 && csc % 8 == 0,
+               (int)nc};
   if (dtype == 0) return (int)launch_t(x, b, c, dt, da, y, hfin, B, d, s);
-  if (dtype != 1 || scratch == nullptr || B * nc > 65535)
+  if (dtype != 1 || scratch == nullptr || group < 1 || B * group > 65535 ||
+      (group < nc && hfin == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (ns <= 16)
-    return (int)launch_hd<16>(x, b, c, dt, da, y, hfin, scratch, B, d, s);
-  if (ns <= 64)
-    return (int)launch_hd<64>(x, b, c, dt, da, y, hfin, scratch, B, d, s);
-  return (int)launch_hd<128>(x, b, c, dt, da, y, hfin, scratch, B, d, s);
+  return (int)launch_groups(x, b, c, dt, da, y, hfin, scratch, B, d, group,
+                            s);
 }
 
 }  // extern "C"

@@ -21,13 +21,16 @@ def _as_int32(u: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= (1 << 31), u - _U32, u).to(torch.int32)
 
 
-def delta_zigzag_ref(ticks: torch.Tensor) -> torch.Tensor:
+def delta_zigzag_ref(ticks: torch.Tensor, segment: int = 0) -> torch.Tensor:
     """Flat u32 ticks (int32 bit patterns) -> zigzag of the first-order
-    delta wrapped mod 2^32, as int32 bit patterns (element 0 is taken
-    against 0)."""
+    delta wrapped mod 2^32, as int32 bit patterns; element i is taken
+    against 0 where ``i % segment == 0`` (``segment`` 0: only element
+    0)."""
     x = ticks.to(torch.int64) & (_U32 - 1)
     prev = torch.zeros_like(x)
     prev[1:] = x[:-1]
+    if segment:
+        prev[::segment] = 0
     d = (x - prev) & (_U32 - 1)
     d = torch.where(d >= (1 << 31), d - _U32, d)     # signed 32-bit delta
     return _as_int32(((d << 1) ^ (d >> 63)) & (_U32 - 1))
@@ -70,6 +73,21 @@ def uvarint_encode64_ref(values: torch.Tensor
         b = (v >> (7 * j)) & (0x7F if j < 9 else 0x01)
         planes[j] = torch.where(j < lens - 1, b | 0x80, b).to(torch.uint8)
     return lens, planes
+
+
+def uvarint_pack64_ref(values: torch.Tensor) -> torch.Tensor:
+    """u64 values (int64 bit patterns) -> their uvarints packed end to end,
+    uint8 (total,): the lens and planes of :func:`uvarint_encode64_ref`
+    scattered to their offsets, plane by plane."""
+    lens, planes = uvarint_encode64_ref(values)
+    lens = lens.to(torch.int64)
+    starts = torch.cumsum(lens, 0) - lens
+    out = torch.empty(int(lens.sum()), dtype=torch.uint8,
+                      device=values.device)
+    for j in range(10):
+        sel = lens > j
+        out[starts[sel] + j] = planes[j][sel]
+    return out
 
 
 def fit_columns_ref(V: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

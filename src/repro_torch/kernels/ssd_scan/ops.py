@@ -18,8 +18,13 @@ ns 128) the function moves 77.6 MB and needs 21.5 GFLOP (the causal
 triangle of each chunk), so the bytes bound it, narrowly, on an H100.
 bf16 runs three kernels on the tensor cores (chunk states, state
 passing, chunk output), with f32 scratch of (2 ns hd + Q + 1) floats per
-(batch, chunk, head) that the wrapper allocates; one call counts as one
-``ssd_scan`` launch.  f32 keeps the CUDA-core kernel.  Times are in
+(batch, chunk, head) that the wrapper allocates.  So that the scratch
+does not grow with the number of chunks (a prime prompt length gives
+Q = 1 and nc = S), the kernel runs the three passes over groups of at most
+G chunks, carrying the f32 state from group to group, with G from
+:func:`scratch_plan`; the scratch is allocated once per call and reused
+by every group, and one call counts as one ``ssd_scan`` launch.  f32
+keeps the CUDA-core kernel, which needs no scratch.  Times are in
 ``PERF.md``.
 """
 
@@ -34,11 +39,16 @@ from .. import _build
 from .ref import ssd_scan_chunked_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
-_SIGNATURES = {"ssd_scan": [_P] * 8 + [_I] * 17 + [_P]}
+_SIGNATURES = {"ssd_scan": [_P] * 8 + [_I] * 18 + [_P]}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128      # hd: the kernel's widest register tile
 MAX_STATE = 128         # ns: shared memory holds the (ns, hd) state
 MAX_CHUNK = 4096        # Q: shared memory holds the chunk's decay sums
+MAX_GRID = 65535        # grid y and z: pass A has G on y, pass C B * G on z
+# bytes of f32 scratch a bf16 call may take: above the 68.2 MB that the
+# mamba2-370m serve prefill (B 4, nc 8, Q 256) takes in one group, below
+# twice that
+SCRATCH_BUDGET = 128 << 20
 
 
 def _lib() -> ctypes.CDLL:
@@ -80,6 +90,17 @@ def _check(x, b, c, dt, da) -> None:
                          f"{MAX_STATE}, Q <= {MAX_CHUNK}")
 
 
+def scratch_plan(B: int, nc: int, Q: int, nh: int, hd: int, ns: int
+                 ) -> Tuple[int, int]:
+    """(G, bytes): the chunks a group of the bf16 path takes and the f32
+    scratch the call allocates, (2 ns hd + Q + 1) floats per (batch, chunk
+    of a group, head).  G is the most chunks whose scratch fits
+    SCRATCH_BUDGET (at least one) and whose grids fit (B G <= 65535)."""
+    per_chunk = 4 * B * nh * (2 * ns * hd + Q + 1)
+    G = max(1, min(nc, SCRATCH_BUDGET // per_chunk, MAX_GRID // B))
+    return G, G * per_chunk
+
+
 def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              dt: torch.Tensor, da: torch.Tensor, *,
              return_state: bool = False
@@ -94,23 +115,27 @@ def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         return (y, h) if return_state else y
     B, nc, Q, nh, hd = x.shape
     ns = b.shape[-1]
-    if B * nc > 65535 or nh > 65535:
-        raise ValueError(f"B * nc = {B * nc} and nh = {nh} must each be "
-                         f"<= 65535 (grid)")
+    if B > MAX_GRID or nh > MAX_GRID:
+        raise ValueError(f"B = {B} and nh = {nh} must each be <= "
+                         f"{MAX_GRID} (grid)")
+    G, nbytes = scratch_plan(B, nc, Q, nh, hd, ns)
+    bf16 = x.dtype == torch.bfloat16
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    # more than one group carries the state from group to group in h
     h = torch.zeros((B, nh, ns, hd), dtype=torch.float32, device=x.device) \
-        if return_state else None
+        if return_state or (bf16 and G < nc) else None
     if x.numel():
-        # bf16: chunk states, the states entering each chunk as bf16 hi
-        # and lo, then cs and tot of every (batch, chunk, head)
-        scratch = torch.empty(B * nc * nh * (2 * ns * hd + Q + 1),
-                              dtype=torch.float32, device=x.device) \
-            if x.dtype == torch.bfloat16 else None
+        # bf16: for the chunks of one group, their states, the states
+        # entering them as bf16 hi and lo, then cs and tot of every
+        # (batch, chunk, head)
+        scratch = torch.empty(nbytes // 4, dtype=torch.float32,
+                              device=x.device) if bf16 else None
         _build.launch(_lib(), "ssd_scan", x.device, _build.ptr(x),
                       _build.ptr(b), _build.ptr(c), _build.ptr(dt),
                       _build.ptr(da), _build.ptr(y),
                       _build.ptr(h) if h is not None else None,
                       _build.ptr(scratch) if scratch is not None else None,
                       B, nc, Q, nh, hd, ns, *x.stride()[:4],
-                      *b.stride()[:3], *c.stride()[:3], DTYPE_CODES[x.dtype])
+                      *b.stride()[:3], *c.stride()[:3], G,
+                      DTYPE_CODES[x.dtype])
     return (y, h) if return_state else y

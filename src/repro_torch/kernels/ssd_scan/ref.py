@@ -12,7 +12,9 @@ holds the CUDA kernel against it on the card.
 ``ssd_scan_passes_ref`` is the same function regrouped as the bf16 CUDA
 kernels compute it, in three passes over all chunks at once: the chunk
 states, the state passing, the chunk outputs.  It lets the CPU tests prove
-the regrouping, and emulate the kernels' bf16 operands (``operand``).
+the regrouping, also over groups of chunks with the state carried between
+them (``group``, as the wrapper bounds its scratch), and emulate the
+kernels' bf16 operands (``operand``).
 
 ``ssd_scan_token_ref`` is the token-by-token recurrence, a port of the JAX
 package's oracle ``ssd_scan_ref`` (``kernels/ssd_scan/ref.py:10``).
@@ -66,7 +68,8 @@ def ssd_scan_chunked_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
 def ssd_scan_passes_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                         dt: torch.Tensor, da: torch.Tensor,
-                        operand: Optional[Callable] = None
+                        operand: Optional[Callable] = None,
+                        group: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD in the three passes of ``csrc/ssd_scan.cu``, in f32;
     same arguments and results as :func:`ssd_scan_chunked_ref`.
@@ -77,11 +80,33 @@ def ssd_scan_passes_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
       C  y[q] = exp(cs_q) c_q . h_c
                 + sum_{p <= q} (c_q . b_p) exp(cs_q - cs_p) dt_p x_p
 
+    ``group``, if given, runs the three passes over groups of at most that
+    many chunks, one group after another, as the wrapper does when its
+    scratch budget cuts the chunks: pass B of a group starts from the f32
+    state the previous group's pass B ended with.
+
     ``operand``, if given, is applied to the three f32 operands the kernels
     take into the tensor cores -- the decay-scaled x of A, the entering
     states h_c and the weights W of C -- before their products (the tests
     pass bf16 rounding)."""
     op = operand if operand is not None else (lambda t: t)
+    B, nc, Q, nh, hd = x.shape
+    G = nc if group is None else group
+    if G < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    h = torch.zeros((B, nh, b.shape[-1], hd), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for c0 in range(0, nc, G):
+        g = slice(c0, c0 + G)
+        y, h = _passes(x[:, g], b[:, g], c[:, g], dt[:, g], da[:, g], h, op)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def _passes(x, b, c, dt, da, h, op):
+    """Passes A, B and C of :func:`ssd_scan_passes_ref` over the chunks
+    given, pass B starting from the state ``h``."""
     B, nc, Q, nh, hd = x.shape
     xf = x.float().permute(0, 1, 3, 2, 4)                 # (B, nc, nh, Q, hd)
     bf, cf = b.float(), c.float()                        # (B, nc, Q, ns)
@@ -92,7 +117,6 @@ def ssd_scan_passes_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     xs = (dtf * torch.exp(tot - cs))[..., None] * xf
     S = torch.einsum("bcqs,bchqd->bchsd", bf, op(xs))    # (B, nc, nh, ns, hd)
     # B: the state entering each chunk
-    h = torch.zeros_like(S[:, 0])
     entering = []
     for ci in range(nc):
         entering.append(h)

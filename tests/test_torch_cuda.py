@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card.  The seven encode and read kernels are exact (integer maps;
+card.  The eight encode and read kernels are exact (integer maps;
 histogram counts are integers, so the order of its atomic adds cannot
 change them); flash attention and RMSNorm sum in another order than their
 plain versions and are held to f32 2e-5 and bf16 2e-2 (atol and rtol),
@@ -21,13 +21,15 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref
 from repro_torch.kernels.delta_encode import ops as de
 from repro_torch.kernels.delta_encode.ref import (delta_zigzag_ref,
                                                   delta_zigzag_varint_ref,
                                                   fit_columns_ref,
-                                                  uvarint_encode64_ref)
+                                                  uvarint_encode64_ref,
+                                                  uvarint_pack64_ref)
 from repro_torch.kernels.grammar_stats import ops as gs
 from repro_torch.kernels.grammar_stats.ref import (digram_codes_ref,
                                                    histogram_ref,
@@ -74,6 +76,38 @@ def test_uvarint_encode64(dev, n):
     want_lens, want_planes = uvarint_encode64_ref(v)
     assert torch.equal(lens.cpu(), want_lens)
     assert torch.equal(planes.cpu(), want_planes)
+
+
+# lengths around a warp (32 lanes of 4 values), a block (256 threads) and
+# the packer's 1,024-value tile, primes, and a grid-stride walk
+ODD_LENGTHS = [1, 2, 63, 64, 127, 1021, 1024, 1025, 2047, 2048, 2049, 4099,
+               32771, 65542, 3 * 2 ** 20 + 7]
+
+
+@pytest.mark.parametrize("segment", [0, 1, 3, 4, 5, 31, 33, 12288])
+@pytest.mark.parametrize("n", ODD_LENGTHS)
+def test_delta_zigzag_segments(dev, n, segment):
+    """A segment boundary inside a 4-value vector and inside a warp; x read
+    16 bytes at a time and, one element off 16-byte alignment, a value at
+    a time."""
+    x = _u32(n, n + segment)
+    want = delta_zigzag_ref(x, segment)
+    assert torch.equal(de.delta_zigzag(x.to(dev), segment).cpu(), want)
+    shifted = torch.cat([torch.zeros(1, dtype=torch.int32), x]).to(dev)[1:]
+    assert torch.equal(de.delta_zigzag(shifted, segment).cpu(), want)
+
+
+@pytest.mark.parametrize("n", ODD_LENGTHS)
+def test_uvarint_pack64(dev, n):
+    """Every length class, tiles whose bytes start off a 4-byte boundary,
+    values read 16 bytes at a time and, off alignment, one at a time;
+    small values too (one to two bytes each)."""
+    for v in (_u64(n, n), torch.arange(n, dtype=torch.int64) % 300):
+        want = uvarint_pack64_ref(v)
+        got = de.uvarint_pack64(v.to(dev))
+        assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+        shifted = torch.cat([torch.zeros(1, dtype=torch.int64), v]).to(dev)
+        assert torch.equal(de.uvarint_pack64(shifted[1:]).cpu(), want)
 
 
 @pytest.mark.parametrize("c,r", [(1, 2), (7, 33), (4096, 32)])
@@ -133,7 +167,9 @@ def test_launches_are_counted(dev):
     _build.reset_launches()
     de.delta_zigzag(_u32(10, 0).to(dev))
     de.delta_zigzag(torch.empty(0, dtype=torch.int32, device=dev))  # no-op
-    assert _build.launch_counts() == {"delta_zigzag": 1}
+    de.uvarint_pack64(_u64(5000, 0).to(dev))
+    de.uvarint_pack64(torch.empty(0, dtype=torch.int64, device=dev))
+    assert _build.launch_counts() == {"delta_zigzag": 1, "uvarint_pack64": 1}
 
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -325,6 +361,51 @@ def test_ssd_scan_sixteen_chunks(dev, Q, dtype):
     tx = _ssd_inputs(2, 16, Q, 3, 64, 128, dtype, dev, 60 + Q)
     y, h = ssd_scan(*tx, return_state=True)
     torch.cuda.synchronize()
+    want_y, want_h = ssd_scan_chunked_ref(*tx)
+    _ssd_close(y, want_y)
+    _ssd_close(h, want_h)
+
+
+def test_ssd_scan_prime_length_runs_in_groups(dev):
+    """Q 1 and nc 2,003 (a prime prompt length): the bf16 passes run over
+    groups of chunks with bounded scratch, the state carried between
+    groups, within the plain version's tolerance."""
+    tx = _ssd_inputs(2, 2003, 1, 4, 64, 128, torch.bfloat16, dev, 91)
+    G, _ = ssd_ops.scratch_plan(2, 2003, 1, 4, 64, 128)
+    assert 1 < G < 2003
+    y, h = ssd_scan(*tx, return_state=True)
+    torch.cuda.synchronize()
+    want_y, want_h = ssd_scan_chunked_ref(*tx)
+    _ssd_close(y, want_y)
+    _ssd_close(h, want_h)
+
+
+def test_ssd_scan_groups_are_bit_identical(dev, monkeypatch):
+    """A group boundary only cuts the state pass's walk, and the state
+    crosses it in f32: a scratch budget that takes groups of 3 or of 5
+    gives one group's y and state bit for bit."""
+    shape = (2, 16, 64, 3, 64, 128)
+    tx = _ssd_inputs(*shape, torch.bfloat16, dev, 92)
+    assert ssd_ops.scratch_plan(*shape)[0] == 16
+    y, h = ssd_scan(*tx, return_state=True)
+    per_chunk = ssd_ops.scratch_plan(*shape)[1] // 16
+    for group in (3, 5):
+        monkeypatch.setattr(ssd_ops, "SCRATCH_BUDGET", group * per_chunk)
+        assert ssd_ops.scratch_plan(*shape)[0] == group
+        yg, hg = ssd_scan(*tx, return_state=True)
+        assert torch.equal(yg, y) and torch.equal(hg, h)
+    monkeypatch.setattr(ssd_ops, "SCRATCH_BUDGET", 3 * per_chunk)
+    assert torch.equal(ssd_scan(*tx), y)   # h only as the carry
+
+
+def test_ssd_scan_more_batch_chunks_than_a_grid_holds(dev):
+    """B nc = 66,000 > 65,535, once refused, runs in groups whose grids
+    fit; one call is one counted launch."""
+    tx = _ssd_inputs(33, 2000, 1, 1, 16, 16, torch.bfloat16, dev, 93)
+    _build.reset_launches()
+    y, h = ssd_scan(*tx, return_state=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"ssd_scan": 1}
     want_y, want_h = ssd_scan_chunked_ref(*tx)
     _ssd_close(y, want_y)
     _ssd_close(h, want_h)

@@ -23,7 +23,8 @@ from repro_torch.core.interprocess import arith_segments, batch_fit_columns
 from repro_torch.core.patterns import IntraPatternTracker
 from repro_torch.core.recorder import Recorder, RecorderConfig
 from repro_torch.core.sequitur import Sequitur
-from repro_torch.core.timestamps import compress_timestamps
+from repro_torch.core.timestamps import (compress_timestamps,
+                                         compress_timestamps_blocked)
 
 CPU_BACKENDS = ["python", "numpy", "torch"]
 
@@ -62,6 +63,41 @@ def test_compress_timestamps_matches_reference(backend):
     ticks = _flat_ticks(2 * 600, seed=3).astype(np.uint32).reshape(-1, 2)
     assert (compress_timestamps(ticks, backend=backend)
             == ref_compress(ticks, backend="python"))
+
+
+@pytest.mark.parametrize("backend", CPU_BACKENDS)
+@pytest.mark.parametrize("segment", [1, 3, 4, 7, 4096, 5000])
+def test_delta_zigzag_segments_match_reference(backend, segment):
+    """``segment`` restarts the deltas at every multiple of it: the result
+    is the reference's ``python`` path run on each segment alone."""
+    flat = _flat_ticks(4099, seed=segment)
+    want = np.concatenate([ref_eb.delta_zigzag(flat[s:s + segment], "python")
+                           for s in range(0, len(flat), segment)])
+    got = eb.delta_zigzag(flat.astype(np.uint32), backend, segment)
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+
+
+N_TS_RECORDS = 4500
+
+
+@pytest.mark.parametrize("backend", CPU_BACKENDS)
+@pytest.mark.parametrize("ncols", [2, 3])
+@pytest.mark.parametrize("block_records", [1, 7, 4096, N_TS_RECORDS + 1])
+def test_compress_timestamps_blocked_matches_reference(backend, ncols,
+                                                       block_records):
+    """A flush's blocks, all encoded in one segmented ``delta_zigzag``
+    call, equal the JAX package's blocks, each encoded on its own; (n, 2)
+    entry/exit and (n, 3) sized ticks, one record a block up to one block
+    for all."""
+    from repro.core.timestamps import (
+        compress_timestamps_blocked as ref_blocked)
+    ticks = _flat_ticks(N_TS_RECORDS * ncols, seed=ncols * 31
+                        + block_records).astype(np.uint32).reshape(-1, ncols)
+    want = ref_blocked(ticks, block_records, backend="python")
+    got = compress_timestamps_blocked(ticks, block_records, backend=backend)
+    assert len(got) == -(-N_TS_RECORDS // block_records)
+    assert got == want
 
 
 @pytest.mark.parametrize("backend", CPU_BACKENDS)
@@ -217,7 +253,8 @@ def card_on_cpu(monkeypatch):
     monkeypatch.setattr(eb, "_to_device",
                         lambda a, b: torch.from_numpy(np.ascontiguousarray(a)))
     for mod, name in ((de, "delta_zigzag_varint"), (gs, "histogram"),
-                      (gs, "digram_codes")):
+                      (gs, "digram_codes"), (de, "delta_zigzag"),
+                      (de, "uvarint_pack64"), (de, "uvarint_encode64")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name: (
             calls.append(_n) or _r(*a)))
@@ -240,6 +277,23 @@ def test_cuda_route_takes_the_kernels_at_any_width(card_on_cpu):
     assert (eb.encode_ticks_varint(ticks, "cuda")
             == ref_eb.encode_ticks_varint(ticks, "python"))
     assert card_on_cpu == ["histogram", "digram_codes", "delta_zigzag_varint"]
+
+
+def test_cuda_route_packs_and_encodes_a_flush_in_one_call(card_on_cpu):
+    """``cuda`` packs a varint batch with one ``uvarint_pack64`` call (no
+    byte planes, no host scatter) and encodes every block of a flush with
+    one segmented ``delta_zigzag`` call; the bytes equal the reference's."""
+    from repro.core.timestamps import (
+        compress_timestamps_blocked as ref_blocked)
+    vals = [0, 127, 128, 1 << 63, (1 << 64) - 1] + _ragged_u64(3000, seed=4)
+    assert pack_uvarints(vals, backend="cuda") == ref_pack(vals,
+                                                           backend="python")
+    assert card_on_cpu == ["uvarint_pack64"]
+    ticks = _flat_ticks(3 * 4500, seed=5).astype(np.uint32).reshape(-1, 3)
+    got = compress_timestamps_blocked(ticks, 512, backend="cuda")
+    assert len(got) == 9
+    assert got == ref_blocked(ticks, 512, backend="python")
+    assert card_on_cpu == ["uvarint_pack64", "delta_zigzag"]
 
 
 @pytest.fixture

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.encoding import pack_uvarints as ref_pack
 from repro.kernels.delta_encode import ops as ref_de
 from repro.kernels.delta_encode.ref import fit_columns_ref
 from repro.kernels.grammar_stats import ops as ref_gs
@@ -99,6 +100,43 @@ def test_uvarint_encode64_matches_pallas(n):
                                   np.asarray(want_planes).astype(np.uint8))
     # the edges land in their length classes: 1, 1, 2, 10, 10 bytes
     assert lens.numpy()[:5].tolist() == [1, 1, 2, 10, 10]
+
+
+@pytest.mark.parametrize("segment", [1, 2, 3, 4, 5, 64, 100])
+@pytest.mark.parametrize("n", [1, 7, 257])
+def test_delta_zigzag_segments_match_pallas_per_segment(n, segment):
+    """With ``segment`` every segment is encoded from scratch: the result
+    is the Pallas kernel's, run on each segment alone (segments of 1-5
+    elements end inside one of the kernel's 4-value vectors)."""
+    x = _ticks(n, "extreme", seed=n + segment)
+    want = np.concatenate([
+        np.asarray(ref_de.delta_zigzag(jnp.asarray(x[s:s + segment]),
+                                       interpret=True))
+        for s in range(0, n, segment)])
+    got = de.delta_zigzag(_to_t(x.view(np.int32)), segment)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+# a value of every varint length class 1..10: 7 k bits for k = 1..9, then
+# 64 bits
+PACK_CLASSES = [(1 << (7 * k)) - 1 for k in range(1, 10)] + [(1 << 64) - 1]
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 32771])
+def test_uvarint_pack64_matches_jax_pack_uvarints(n):
+    """The packed stream of the plain version (the wrapper on CPU tensors)
+    equals the JAX package's ``pack_uvarints`` byte for byte: values of
+    every length class, 0, 2^63 and 2^64 - 1 lead, ragged values follow."""
+    lead = [0, 1 << 63, (1 << 64) - 1] + PACK_CLASSES
+    v = np.concatenate([np.asarray(lead, np.uint64),
+                        _ragged_u64(n, seed=n)])[:n]
+    got = de.uvarint_pack64(_to_t(v.view(np.int64)))
+    assert got.dtype == torch.uint8
+    assert got.numpy().tobytes() == ref_pack([int(a) for a in v],
+                                             backend="python")
+    if n >= 63:
+        lens, _ = de.uvarint_encode64(_to_t(v.view(np.int64)))
+        assert set(lens.numpy().tolist()) == set(range(1, 11))
 
 
 @pytest.mark.parametrize("c,r", [(1, 2), (5, 3), (257, 32), (4099, 6)])
@@ -203,6 +241,9 @@ def test_digram_codes_pass_int32():
     (de.delta_zigzag, torch.zeros(4, dtype=torch.int64)),       # dtype
     (de.delta_zigzag, torch.zeros((2, 2), dtype=torch.int32)),  # rank
     (de.uvarint_encode64, torch.zeros(4, dtype=torch.int32)),
+    (de.uvarint_pack64, torch.zeros(4, dtype=torch.int32)),
+    (de.uvarint_pack64, torch.zeros((2, 2), dtype=torch.int64)),
+    (lambda x: de.delta_zigzag(x, -1), torch.zeros(4, dtype=torch.int32)),
     (de.fit_columns, torch.zeros((4, 1), dtype=torch.int64)),   # R < 2
     (gs.row_boundaries, torch.zeros((4, 3), dtype=torch.int64)[:, ::2]),
     (de.delta_zigzag_varint, torch.zeros(4, dtype=torch.int64)),
@@ -221,6 +262,8 @@ def test_cpu_wrappers_launch_nothing():
     _build.reset_launches()
     de.delta_zigzag(torch.arange(9, dtype=torch.int32))
     de.uvarint_encode64(torch.arange(9, dtype=torch.int64))
+    de.uvarint_pack64(torch.arange(9, dtype=torch.int64))
+    de.delta_zigzag(torch.arange(9, dtype=torch.int32), 4)
     de.fit_columns(torch.zeros((3, 4), dtype=torch.int64))
     gs.row_boundaries(torch.zeros((3, 2), dtype=torch.int64))
     de.delta_zigzag_varint(torch.arange(9, dtype=torch.int32))

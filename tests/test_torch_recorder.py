@@ -145,6 +145,25 @@ def test_streaming_segments_match_reference(tmp_path):
                 == _records(ref_reader.TraceReader(port, mode=mode), 0))
 
 
+@pytest.mark.parametrize("backend", ["python", "numpy", "torch"])
+@pytest.mark.parametrize("ts_block_records", [1, 7, 64, 4096])
+def test_streaming_segments_match_reference_at_block_sizes(
+        tmp_path, backend, ts_block_records):
+    """Each flush encodes all of its timestamp blocks in one segmented
+    delta_zigzag call; every epoch segment stays the reference's, from one
+    record a block to one block a flush."""
+    datadir = str(tmp_path / "data")
+    cfg = {"flush_every_n_records": 64, "ts_block_records": ts_block_records}
+    ref = _facade_trace(REF, str(tmp_path / "ref"), datadir, "python", **cfg)
+    port = _facade_trace(PORT, str(tmp_path / "port"), datadir, backend,
+                         **cfg)
+    assert sorted(os.listdir(ref)) == sorted(os.listdir(port))
+    for d in sorted(os.listdir(port)):
+        if os.path.isdir(os.path.join(port, d)):
+            assert _bin_digest(os.path.join(port, d)) == _bin_digest(
+                os.path.join(ref, d)), d
+
+
 def _ior_trace(pkg, trace_dir, topology, backend, nprocs=6, n_iter=40,
                xfer=1 << 20):
     """IOR (paper Listing 3): every rank lseeks to its strided slot of one
@@ -233,6 +252,7 @@ def counted_wrappers(monkeypatch):
 
     for module, name in ((de_ops, "delta_zigzag"),
                          (de_ops, "uvarint_encode64"),
+                         (de_ops, "uvarint_pack64"),
                          (de_ops, "fit_columns"),
                          (gs_ops, "row_boundaries")):
         counting(module, name)
@@ -245,13 +265,15 @@ def test_finalize_routes_through_kernel_wrappers(tmp_path, counted_wrappers):
     _ior_trace(PORT, str(tmp_path / "tree"), "tree", "torch")
     tree = _build.launch_counts()
     assert tree.get("delta_zigzag", 0) == 6            # one per rank
-    assert tree.get("uvarint_encode64", 0) > 0         # grammars, cfg_index
+    assert tree.get("uvarint_pack64", 0) > 0           # grammars, cfg_index
+    assert "uvarint_encode64" not in tree              # packed, not planes
     assert "fit_columns" not in tree                   # tree fits in scalar
     _build.reset_launches()
     _ior_trace(PORT, str(tmp_path / "flat"), "flat", "torch")
     flat = _build.launch_counts()
     assert flat.get("delta_zigzag", 0) == 6
-    assert flat.get("uvarint_encode64", 0) > 0
+    assert flat.get("uvarint_pack64", 0) > 0
+    assert "uvarint_encode64" not in flat
     assert flat.get("fit_columns", 0) == 1             # one batched fit
     # the Recorder does not segment runs itself; the batched pattern
     # encoders do, and they reach row_boundaries

@@ -21,6 +21,7 @@ from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_token_ref
 from repro.models import ssm as JS
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import (ssd_scan_chunked_ref,
                                               ssd_scan_passes_ref,
                                               ssd_scan_token_ref)
@@ -162,6 +163,76 @@ def test_passes_keep_an_overflowing_decay_finite():
                                rtol=PASS_TOL)
     np.testing.assert_allclose(h.numpy(), want_h.numpy(), atol=PASS_TOL,
                                rtol=PASS_TOL)
+
+
+# f32: a group boundary only cuts pass B's walk over the chunks, and the
+# state crosses it in f32 as it crosses a chunk boundary
+GROUP_TOL = 1e-6
+
+
+@pytest.mark.parametrize("nc,group", [(7, 1), (7, 3), (7, 7), (16, 1),
+                                      (16, 3), (16, 16)])
+def test_grouped_passes_match_chunked_ref(nc, group):
+    """The three passes over groups of at most ``group`` chunks, the state
+    carried from group to group (the bf16 kernel's bounded scratch), give
+    the chunked function's y and final state; nc 7 and 16 are no multiple
+    of 3, so the last group is short."""
+    _, tx = _inputs(2, nc, 5, 3, 16, 8, "float32", seed=nc * 10 + group)
+    y, h = ssd_scan_passes_ref(*tx, group=group)
+    want_y, want_h = ssd_scan_chunked_ref(*tx)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), atol=GROUP_TOL,
+                               rtol=GROUP_TOL)
+    np.testing.assert_allclose(h.numpy(), want_h.numpy(), atol=GROUP_TOL,
+                               rtol=GROUP_TOL)
+
+
+def _chunk(S, chunk=256):
+    """Q as ``models.ssm.ssd_apply`` chooses it: the largest divisor of S
+    up to the configured chunk."""
+    Q = min(chunk, S)
+    while S % Q:
+        Q -= 1
+    return Q
+
+
+# (B, S) -> (G, bytes) at mamba2-370m's SSD shape (nh 32, hd 64, ns 128,
+# chunk 256): (2 ns hd + Q + 1) floats per (batch, chunk, head), as many
+# chunks as fit SCRATCH_BUDGET (128 MiB)
+MAMBA2_PLANS = {(4, 2048): (8, 68161536), (4, 2053): (15, 125844480),
+                (16, 2048): (3, 102242304), (16, 2053): (3, 100675584)}
+
+
+@pytest.mark.parametrize("B,S", sorted(MAMBA2_PLANS))
+def test_scratch_plan_at_mamba2_shape(B, S):
+    """The bf16 wrapper's groups and scratch at mamba2's shape: one group
+    of 8 chunks at the serve prompt (2,048 tokens, B 4), as before the
+    grouping; at a prime length (Q 1, nc 2,053) the scratch stays within
+    the budget instead of the 17.2 GB one group of 2,053 chunks needs."""
+    Q = _chunk(S)
+    nc = S // Q
+    G, nbytes = ssd_ops.scratch_plan(B, nc, Q, 32, 64, 128)
+    assert (G, nbytes) == MAMBA2_PLANS[(B, S)]
+    assert nbytes == G * 4 * B * 32 * (2 * 128 * 64 + Q + 1)
+    assert nbytes <= ssd_ops.SCRATCH_BUDGET and B * G <= ssd_ops.MAX_GRID
+    # the budget holds the serve prompt's one group, and at most twice it
+    assert MAMBA2_PLANS[(4, 2048)][1] <= ssd_ops.SCRATCH_BUDGET \
+        <= 2 * MAMBA2_PLANS[(4, 2048)][1]
+    if (B, S) == (4, 2048):
+        assert G == nc
+
+
+def test_scratch_plan_fits_the_grid_and_takes_a_group(monkeypatch):
+    """B nc > 65,535 is cut into groups whose grids fit; a budget of 3
+    chunks' scratch takes groups of 3, one above nc takes one group, and
+    one below a chunk's scratch still takes a chunk a group."""
+    G, _ = ssd_ops.scratch_plan(33, 2000, 1, 1, 16, 16)
+    assert 1 <= G <= 65535 // 33 < 2000
+    per_chunk = 4 * 2 * 3 * (2 * 128 * 64 + 64 + 1)
+    for budget, want in ((3 * per_chunk, 3), (3 * per_chunk + 7, 3),
+                         (99 * per_chunk, 16), (per_chunk - 1, 1)):
+        monkeypatch.setattr(ssd_ops, "SCRATCH_BUDGET", budget)
+        assert ssd_ops.scratch_plan(2, 16, 64, 3, 64, 128) == \
+            (want, want * per_chunk)
 
 
 def _bf16_once(t):
