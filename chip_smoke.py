@@ -14,7 +14,11 @@ csrc`` and then runs, in order:
                 the encode and read kernels exact (``delta_zigzag`` also
                 with segments, ``uvarint_pack64`` at every length class,
                 both at lengths around a warp, a block and a tile, and off
-                16-byte alignment), flash attention and RMSNorm within f32
+                16-byte alignment; ``row_run_starts`` over rows and their
+                difference, and ``digram_counts`` on both sides of its
+                dense route's limit and far past it, at edge lengths
+                and at 16,777,216 rows / terminals; an out-of-range
+                terminal must raise), flash attention and RMSNorm within f32
                 2e-5 / bf16 2e-2, the SSD chunk scan (y and final state)
                 within 5 times that, at edge and full sizes and at every
                 shape the serve runs give them, and at mamba2's shape for
@@ -35,10 +39,15 @@ csrc`` and then runs, in order:
                 many blocks it writes, and every ``cuda`` varint pack of
                 phases 3-6 ``uvarint_pack64`` once;
 5. patterns  -- the batched pattern encoders (``encode_many``,
-                ``push_stream``) on the card, against ``numpy``;
+                ``push_stream``) on the card, against ``numpy``; they must
+                launch ``row_run_starts`` once each (twice in phases 3-6)
+                and ``row_boundaries`` never;
 6. read      -- the read side over phase 3's traces: ``TraceReader.view()``
                 digram counts of every rank on ``cuda`` against the grammar
-                walk and ``numpy``, the terminal histogram and the fused
+                walk and ``numpy`` (keys in the same order), one
+                ``digram_counts`` launch a rank and one a unique grammar of
+                the aggregate (33 in phases 3-6), ``digram_codes`` never;
+                the terminal histogram and the fused
                 tick-varint encode over all ranks, a ``TraceService`` over
                 the three IOR jobs answering every query family, the
                 ``traceserve`` CLI in a subprocess, and a live streaming
@@ -61,8 +70,12 @@ csrc`` and then runs, in order:
                 tokens (a prime: Q 1), kernel path against plain path, with
                 its peak memory;
 9. report    -- the kernels' launch counts from phases 3-6 and from the
-                serve runs (each must be above 0) and their times at the
-                shapes those phases gave them, as one JSON line: device
+                serve runs (each must be above 0, but 0 for the direct
+                counterparts that the main path no longer launches:
+                ``uvarint_encode64``, ``row_boundaries``, ``digram_codes``)
+                and their times at the shapes those phases gave them, and
+                ``digram_counts`` and ``row_run_starts`` also at
+                16,777,216 terminals / rows, as one JSON line: device
                 time per call, summed over the kernels a call launches
                 (the bf16 SSD scan launches three); flash attention and
                 the SSD scan also at hymba's serve shape
@@ -229,6 +242,53 @@ def fit_matrix(c: int, r: int, seed: int, base: int) -> np.ndarray:
     return (V + base).astype(np.int64)
 
 
+def terminal_stream(n: int, t: int, seed: int, hot: float = 0.5
+                    ) -> np.ndarray:
+    """int64 terminals in [0, t): the first ``hot`` share alternates
+    between two terminals, as IOR's lseek and write do (two hot pair
+    codes), the rest is uniform."""
+    rng = np.random.RandomState(seed)
+    s = rng.randint(0, t, size=n).astype(np.int64)
+    h = int(n * hot)
+    s[:h:2] = 0
+    s[1:h:2] = t - 1
+    return s
+
+
+def run_rows(n: int, k: int, seed: int, long_run: bool = False
+             ) -> np.ndarray:
+    """(n, k) int64 rows in runs of 1 to 7 equal rows, a third of the runs
+    near 2^63 and a third near -2^63 (their differences wrap); with
+    ``long_run`` one arithmetic run that ends at 2^63 - 1."""
+    rng = np.random.RandomState(seed)
+    if long_run:
+        V = (np.arange(n, dtype=np.int64)[:, None]
+             * rng.randint(1, 9, size=(1, k))
+             + rng.randint(-9, 9, size=(1, k)))
+        V -= V.max()
+        return V + np.int64((1 << 63) - 1)
+    vals = rng.randint(0, 3, size=(n, k)).astype(np.int64)
+    vals[::3] += np.int64(3 << 61)
+    vals[1::3] -= np.int64(3 << 61)
+    return np.ascontiguousarray(
+        np.repeat(vals, rng.randint(1, 8, size=n), axis=0)[:n])
+
+
+# the 16,777,216-row / -terminal inputs of the redesigned read and
+# pattern kernels: (case, input maker, extra arguments)
+BIG = 16777216
+BIG_DIGRAMS = (("T 6, IOR-like (99% two hot codes)",
+                lambda: terminal_stream(BIG, 6, 21, hot=0.99), 6),
+               ("T 200, uniform", lambda: terminal_stream(BIG, 200, 22, 0),
+                200),
+               ("T 4096, uniform (digram_codes + sort)",
+                lambda: terminal_stream(BIG, 4096, 23, 0), 4096))
+BIG_RUNS = (("runs of 1-7", lambda: run_rows(BIG, 2, 24), False),
+            ("runs of 1-7, diff", lambda: run_rows(BIG, 2, 24), True),
+            ("one arithmetic run, diff",
+             lambda: run_rows(BIG, 2, 25, long_run=True), True))
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -312,6 +372,62 @@ def phase_kernels(k, ssm_calls: dict) -> dict:
             same(k.gs.row_boundaries(R), k.gs_ref.row_boundaries_ref(R),
                  f"row_boundaries ({n}, {kk}) base={base}")
     log("row_boundaries exact at (65535, 3), (1, 1), (257, 1), (4099, 2)")
+    # tiles of 1,024 rows: one row either side of a tile edge, primes, k
+    # in the register path (1-4) and past it, and the big rows below
+    for n, kk in ((1, 1), (2, 1), (3, 2), (1023, 1), (1024, 2), (1025, 3),
+                  (4099, 4), (4099, 5), (65537, 1), (65535, 3)):
+        for long_run in (False, True):
+            R = torch.from_numpy(run_rows(n, kk, n + kk, long_run))
+            Rs = torch.cat([R[:1], R]).to(dev)[1:]
+            R = R.to(dev)
+            for diff in (False, True) if n > 1 else (False,):
+                want = k.gs_ref.row_run_starts_ref(R, diff)
+                what = f"row_run_starts ({n}, {kk}) diff={diff} " \
+                       f"long_run={long_run}"
+                same(k.gs.row_run_starts(R, diff), want, what)
+                same(k.gs.row_run_starts(Rs, diff), want, f"{what} unaligned")
+    for case, make, diff in BIG_RUNS:
+        R = torch.from_numpy(make()).to(dev)
+        same(k.gs.row_run_starts(R, diff),
+             k.gs_ref.row_run_starts_ref(R, diff),
+             f"row_run_starts ({BIG}, 2) {case}")
+    del R, Rs
+    log("row_run_starts exact over rows and their difference at (1, 1) .. "
+        "(65537, 1), aligned and not, and at (16,777,216, 2)")
+    dense_t = k.gs.dense_max_terminals(dev)
+    require(6 <= dense_t < 1 << 20, f"dense route up to T {dense_t}")
+
+    def same_pair(got, want, what):
+        for g, w, part in zip(got, want, ("codes", "counts")):
+            same(g, w, f"{what} {part}")
+
+    for n in (1, 2, 3, 257, 4099, 65537):
+        for t in (1, 6, 241, 242, 4096, 1 << 20):
+            x = torch.from_numpy(terminal_stream(n, t, n + t))
+            xs = torch.cat([x[:1], x]).to(dev)[1:]
+            x = x.to(dev)
+            want = k.gs_ref.digram_counts_ref(x, t)
+            same_pair(k.gs.digram_counts(x, t), want,
+                      f"digram_counts n={n} T={t}")
+            same_pair(k.gs.digram_counts(xs, t), want,
+                      f"digram_counts n={n} T={t} unaligned")
+    for case, make, t in BIG_DIGRAMS:
+        x = torch.from_numpy(make()).to(dev)
+        same_pair(k.gs.digram_counts(x, t), k.gs_ref.digram_counts_ref(x, t),
+                  f"digram_counts n={BIG} {case}")
+    del x, xs
+    for t, bad in ((6, -1), (6, 6), (4096, 4096), (4096, -(1 << 40))):
+        x = torch.from_numpy(terminal_stream(5000, t, 7))
+        x[4321] = bad
+        try:
+            k.gs.digram_counts(x.to(dev), t)
+        except ValueError:
+            continue
+        raise AssertionError(f"digram_counts T={t}: {bad} did not raise")
+    log(f"digram_counts exact at n 1..65,537 for T 1, 6, 241, 242, 4,096, "
+        f"2^20, aligned and not, and at n {BIG} (T 6, 200, 4,096); the "
+        f"dense route takes T <= {dense_t} here; out-of-range terminals "
+        f"raise")
     lengths = [1, 2, 255, 256, 257, 4099, 65537, 16777216]
     for n in lengths:
         for style in ("mono", "wrap", "zero", "extreme"):
@@ -772,12 +888,15 @@ def read_side(p) -> dict:
         got = view.digram_counts(r, backend=BACKEND)
         require(got == view.digram_counts(r),
                 f"rank {r}: cuda digram counts != grammar walk")
-        require(got == view.digram_counts(r, backend="numpy"),
-                f"rank {r}: cuda digram counts != numpy")
+        want = view.digram_counts(r, backend="numpy")
+        require(list(got.items()) == list(want.items()),
+                f"rank {r}: cuda digram counts != numpy, or in another "
+                f"key order")
         want = n_rec - 1 if r is not None else N_RANKS * (n_rec - 1)
         require(sum(got.values()) == want,
                 f"rank {r}: {sum(got.values())} digrams, want {want}")
-    log(f"digram_counts on cuda == grammar walk == numpy for all "
+    log(f"digram_counts on cuda == grammar walk == numpy (in key order) "
+        f"for all "
         f"{N_RANKS} ranks and their aggregate in "
         f"{time.monotonic() - t:.2f} s")
 
@@ -858,9 +977,10 @@ def read_side(p) -> dict:
     folds = live_job(p)
     log(f"live job: {folds} epochs, one segment fold each, in "
         f"{time.monotonic() - t:.2f} s")
-    return {"digram_codes": (streams[0], n_terms),
+    return {"digram_counts": (streams[0], n_terms),
             "histogram": (stream, n_terms),
-            "delta_zigzag_varint": ticks}
+            "delta_zigzag_varint": ticks,
+            "n_grammars": len(set(view.cfg_index))}
 
 
 LIVE_EPOCHS = 8
@@ -1172,9 +1292,9 @@ def prime_prefill(s, spec: ServeSpec) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, iters: int = 200) -> float:
+def cuda_ms(fn, iters: int = 200, warmup: int = 5) -> float:
     """Mean ms per call of ``fn`` between CUDA events, after warm-up."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -1251,19 +1371,25 @@ def host_ms(fn, iters: int = 50) -> float:
     return (time.perf_counter() - t) * 1e3 / iters
 
 
-def main_path_inputs(shapes: dict, read_inputs: dict) -> dict:
+def main_path_inputs(shapes: dict, read_inputs: dict,
+                     run_input: tuple) -> dict:
     """Inputs at the largest shape each write-path kernel saw in phases
-    3-5, and the arrays the read phase handed the read-side kernels."""
+    3-5, the largest matrix the pattern encoders handed ``row_run_starts``
+    (``run_input``: (V, diff)), and the arrays the read phase handed the
+    read-side kernels.  The direct counterparts that the main path no
+    longer launches get their successors' inputs: ``row_boundaries`` the
+    difference rows ``row_run_starts`` compared, ``digram_codes`` the
+    stream ``digram_counts`` counted."""
     def top(name):
         require(bool(shapes.get(name)), f"{name} saw no main-path call")
         return max(shapes[name], key=lambda s: int(np.prod(s)))
 
-    rng = np.random.RandomState(11)
     (n_dz,) = top("delta_zigzag")
     (n_uv,) = top("uvarint_pack64")
     c, r = top("fit_columns")
-    n_rb, k_rb = top("row_boundaries")
-    stream, t_dg = read_inputs["digram_codes"]
+    V, diff = run_input
+    V = V.numpy()
+    stream, t_dg = read_inputs["digram_counts"]
     all_terms, n_bins = read_inputs["histogram"]
     ticks = read_inputs["delta_zigzag_varint"]
     return {
@@ -1271,9 +1397,10 @@ def main_path_inputs(shapes: dict, read_inputs: dict) -> dict:
         "uvarint_encode64": (ragged_u64(n_uv, 2).view(np.int64), ()),
         "uvarint_pack64": (ragged_u64(n_uv, 2).view(np.int64), ()),
         "fit_columns": (fit_matrix(c, r, 3, 0), ()),
-        "row_boundaries": (rng.randint(0, 3, size=(n_rb, k_rb))
-                           .astype(np.int64), ()),
+        "row_boundaries": (V[1:] - V[:-1] if diff else V, ()),
+        "row_run_starts": (V, (diff,)),
         "digram_codes": (stream, (t_dg,)),
+        "digram_counts": (stream, (t_dg,)),
         "histogram": (all_terms, (n_bins,)),
         "delta_zigzag_varint": (ticks.astype(np.uint32).view(np.int32), ()),
     }
@@ -1290,10 +1417,29 @@ DE_TPU = "src/repro/kernels/delta_encode/delta_encode.py"
 GS_TPU = "src/repro/kernels/grammar_stats/grammar_stats.py"
 
 
+def run_starts_library(x: torch.Tensor, diff: bool) -> torch.Tensor:
+    """The run starts by one PyTorch call, ``torch.unique_consecutive``
+    over the rows (after the difference, with ``diff``): its counts are the
+    run lengths."""
+    rows = x[1:] - x[:-1] if diff else x
+    counts = torch.unique_consecutive(rows, dim=0, return_counts=True)[1]
+    return torch.cumsum(counts, 0) - counts
+
+
+def digram_bytes(k, x: torch.Tensor, t: int) -> int:
+    """The stream in, the distinct codes and their counts out."""
+    return 8 * x.numel() + 16 * k.gs_ref.digram_counts_ref(x, t)[0].numel()
+
+
+def starts_bytes(k, x: torch.Tensor, diff: bool) -> int:
+    """The rows in, their run starts out."""
+    return 8 * x.numel() + 8 * k.gs_ref.row_run_starts_ref(x, diff).numel()
+
+
 def kernel_report(k, p, shapes: dict, launches: dict,
-                  read_inputs: dict) -> list:
+                  read_inputs: dict, run_input: tuple) -> list:
     dev = torch.device("cuda")
-    inputs = main_path_inputs(shapes, read_inputs)
+    inputs = main_path_inputs(shapes, read_inputs, run_input)
     # name: (wrapper, plain version, source, TPU kernel, device kernel name,
     #        bytes moved, integer operations, library call or None)
     specs = {
@@ -1322,6 +1468,12 @@ def kernel_report(k, p, shapes: dict, launches: dict,
             f"{GS_TPU}:48", "row_boundaries_kernel",
             lambda x: 8 * x.numel() + x.shape[0],
             lambda x: 2 * x.numel(), None),
+        # bytes: the rows in, the starts out (as many as these rows have)
+        "row_run_starts": (
+            k.gs.row_run_starts, k.gs_ref.row_run_starts_ref, GS_SRC,
+            f"{GS_TPU}:48", "row_run_starts_kernel",
+            lambda x, d: starts_bytes(k, x, d),
+            lambda x, d: (4 if d else 2) * x.numel(), run_starts_library),
         "delta_zigzag_varint": (
             k.de.delta_zigzag_varint, k.de_ref.delta_zigzag_varint_ref,
             DE_SRC, f"{DE_TPU}:100", "delta_zigzag_varint_kernel",
@@ -1335,9 +1487,17 @@ def kernel_report(k, p, shapes: dict, launches: dict,
             k.gs.digram_codes, k.gs_ref.digram_codes_ref, GS_SRC,
             f"{GS_TPU}:113", "digram_codes_kernel",
             lambda x, t: 16 * x.numel(), lambda x, t: 2 * x.numel(), None),
+        # bytes: the stream in, the distinct codes and counts out
+        "digram_counts": (
+            k.gs.digram_counts, k.gs_ref.digram_counts_ref, GS_SRC,
+            f"{GS_TPU}:113", "digram_counts",
+            lambda x, t: digram_bytes(k, x, t), lambda x, t: 3 * x.numel(),
+            None),
     }
-    # the encode dispatch each kernel serves (uvarint_encode64 serves none
-    # now: pack_uvarints_batch launches uvarint_pack64)
+    # the encode dispatch each kernel serves (uvarint_encode64 and
+    # digram_codes serve none now: pack_uvarints_batch launches
+    # uvarint_pack64, digram_histogram digram_counts; run_boundaries keeps
+    # row_boundaries, but nothing on the main path calls it)
     host_calls = {
         "delta_zigzag": lambda a, b: p.eb.delta_zigzag(a.view(np.uint32), b),
         "uvarint_encode64": None,
@@ -1345,11 +1505,13 @@ def kernel_report(k, p, shapes: dict, launches: dict,
             a.view(np.uint64), b),
         "fit_columns": lambda a, b: p.eb.fit_classify(a, b),
         "row_boundaries": lambda a, b: p.eb.run_boundaries(a, b),
+        "row_run_starts": lambda a, b, d: p.eb.run_starts(a, b, d),
         "delta_zigzag_varint": lambda a, b: p.eb.encode_ticks_varint(
             a.view(np.uint32), b),
         "histogram": lambda a, b, n_bins: p.eb.terminal_histogram(a, n_bins,
                                                                   b),
-        "digram_codes": lambda a, b, t: p.eb.digram_histogram(a, t, b),
+        "digram_codes": None,
+        "digram_counts": lambda a, b, t: p.eb.digram_histogram(a, t, b),
     }
     rows = []
     for name, (kern, plain, source, replaces, kname, nbytes, nops,
@@ -1366,7 +1528,9 @@ def kernel_report(k, p, shapes: dict, launches: dict,
                   for o, q in zip(outs, refs))
         require(err == 0.0, f"{name}: kernel != plain at the main path shape")
         ms = cuda_ms(lambda: kern(x, *extra))
-        device_ms = device_kernel_ms(lambda: kern(x, *extra), kname)
+        recorded = {}
+        device_ms = device_kernel_ms(lambda: kern(x, *extra), kname,
+                                     recorded=recorded)
         device_cold_ms = device_kernel_ms(lambda: kern(x, *extra), kname,
                                           cold=True)
         plain_ms = cuda_ms(lambda: plain(x, *extra))
@@ -1380,6 +1544,7 @@ def kernel_report(k, p, shapes: dict, launches: dict,
         bytes_ms = nbytes(x, *extra) / HBM_BYTES_PER_S * 1e3
         ops_ms = nops(x, *extra) / CORE_OPS_PER_S * 1e3
         call = host_calls[name]
+        on_path = launches.get(name, 0) > 0
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
@@ -1389,9 +1554,11 @@ def kernel_report(k, p, shapes: dict, launches: dict,
             "library_ms": library_ms,
             "shape": list(x.shape) + list(extra), "device_ms": device_ms,
             "device_cold_ms": device_cold_ms,
+            # launches the warm profile recorded, of its 20 calls
+            "device_launches": {"recorded": recorded, "of": 20},
             "h2d_ms": h2d_ms, "d2h_ms": d2h_ms,
             "d2h_bytes": sum(o.numel() * o.element_size() for o in outs),
-            "main_path": call is not None,
+            "main_path": on_path,
             "dispatch_cuda_ms": None if call is None else host_ms(
                 lambda: call(host, "cuda", *extra), iters=10),
             "dispatch_numpy_ms": None if call is None else host_ms(
@@ -1405,8 +1572,73 @@ def kernel_report(k, p, shapes: dict, launches: dict,
             f"{rows[-1]['d2h_bytes']} B; dispatch cuda "
             f"{rows[-1]['dispatch_cuda_ms']} ms vs numpy "
             f"{rows[-1]['dispatch_numpy_ms']} ms"
-            + ("" if call else " (not on the main path)"))
+            + ("" if on_path else " (not on the main path)"))
+    big = big_report(k)
+    for row in rows:
+        if row["name"] in big:
+            row["at_16m"] = big[row["name"]]
     return rows
+
+
+def big_report(k) -> dict:
+    """``digram_counts`` and ``row_run_starts`` at 16,777,216 terminals /
+    rows (``BIG_DIGRAMS``, ``BIG_RUNS``): per case the wrapper's ms (CUDA
+    events), device ms warm and with L2 flushed (profiler), the bound, the
+    plain version's ms and, for ``row_run_starts``, the library call's.
+    Past the dense route's limit the device time is ``digram_codes``'
+    alone; the wrapper's ms include the range check and the sort."""
+    dev = torch.device("cuda")
+    dense_t = k.gs.dense_max_terminals(dev)
+    out = {"digram_counts": [], "row_run_starts": []}
+
+    def measure(case, fn, plain, names, nbytes, nops, iters, library=None):
+        got = fn()
+        want = plain()
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            require(torch.equal(g, w), f"{case}: kernel != plain at 16.8M")
+        library_ms = None
+        if library is not None:
+            require(torch.equal(library(), got), f"{case}: library call "
+                    f"disagrees")
+            library_ms = cuda_ms(library, iters=iters, warmup=1)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / CORE_OPS_PER_S * 1e3
+        recorded = {}
+        row = {
+            "case": case, "ms": cuda_ms(fn, iters=iters, warmup=1),
+            "device_ms": device_kernel_ms(fn, names, iters=iters,
+                                          recorded=recorded),
+            "device_cold_ms": device_kernel_ms(fn, names, iters=iters,
+                                               cold=True),
+            "device_launches": {"recorded": recorded, "of": iters},
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "plain_ms": cuda_ms(plain, iters=iters, warmup=1),
+            "library_ms": library_ms}
+        log(f"{case} at 16.8M: kernel {row['ms']:.4f} ms per call (device "
+            f"{row['device_ms']} ms, L2 flushed {row['device_cold_ms']} "
+            f"ms), bound {row['bound_ms']:.6f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library {library_ms} ms")
+        return row
+
+    for case, make, t in BIG_DIGRAMS:
+        x = torch.from_numpy(make()).to(dev)
+        out["digram_counts"].append(measure(
+            f"digram_counts {case}", lambda: k.gs.digram_counts(x, t),
+            lambda: k.gs_ref.digram_counts_ref(x, t),
+            "digram_codes_kernel" if t > dense_t
+            else "digram_counts_dense", digram_bytes(k, x, t), 3 * x.numel(),
+            20))
+    for case, make, diff in BIG_RUNS:
+        x = torch.from_numpy(make()).to(dev)
+        out["row_run_starts"].append(measure(
+            f"row_run_starts {case}", lambda: k.gs.row_run_starts(x, diff),
+            lambda: k.gs_ref.row_run_starts_ref(x, diff),
+            "row_run_starts_kernel", starts_bytes(k, x, diff),
+            (4 if diff else 2) * x.numel(), 20,
+            library=lambda: run_starts_library(x, diff)))
+    return out
 
 
 FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -1684,14 +1916,17 @@ def main() -> int:
     k = SimpleNamespace(de=de_ops, de_ref=de_ref, gs=gs_ops, gs_ref=gs_ref,
                         fa=fa_ops, fa_ref=fa_ref, rn=rn_ops, rn_ref=rn_ref,
                         ssd=ssd_ops, ssd_ref=ssd_ref)
-    # the tracer's kernels; uvarint_encode64 (lens and byte planes) stays
-    # the direct counterpart of the Pallas kernel, but the main path packs
-    # with uvarint_pack64 and must not launch it
+    # the tracer's kernels; uvarint_encode64 (lens and byte planes),
+    # row_boundaries (a row-change mask) and digram_codes (the pair code
+    # of every position) stay the direct counterparts of the Pallas
+    # kernels, but the main path runs their successors uvarint_pack64,
+    # row_run_starts and digram_counts and must not launch them
     wrappers = ((de_ops, "delta_zigzag"), (de_ops, "uvarint_pack64"),
-                (de_ops, "fit_columns"), (gs_ops, "row_boundaries"),
+                (de_ops, "fit_columns"), (gs_ops, "row_run_starts"),
                 (de_ops, "delta_zigzag_varint"), (gs_ops, "histogram"),
-                (gs_ops, "digram_codes"))
-    counterparts = ((de_ops, "uvarint_encode64"),)
+                (gs_ops, "digram_counts"))
+    counterparts = ((de_ops, "uvarint_encode64"), (gs_ops, "row_boundaries"),
+                    (gs_ops, "digram_codes"))
     model_wrappers = ((fa_ops, "flash_attention"), (rn_ops, "rmsnorm"),
                       (ssd_ops, "ssd_scan"))
     p = SimpleNamespace(eb=eb, recorder=recorder, posix=posix,
@@ -1734,6 +1969,7 @@ def main() -> int:
     # the shape each wrapper is called with (the wrapper itself counts its
     # launches).
     shapes = collections.defaultdict(collections.Counter)
+    run_inputs = []    # the largest row_run_starts call's (V, diff)
     lock = threading.Lock()
     originals = []
     for mod, name in wrappers + counterparts + model_wrappers:
@@ -1742,11 +1978,16 @@ def main() -> int:
         def shim(*args, _real=real, _name=name, **kw):
             with lock:
                 shapes[_name][tuple(args[0].shape)] += 1
+                if _name == "row_run_starts" and args[0].numel() > max(
+                        (a[0].numel() for a in run_inputs), default=-1):
+                    run_inputs[:] = [(args[0].cpu(), bool(
+                        args[1] if len(args) > 1 else kw.get("diff")))]
             return _real(*args, **kw)
         originals.append((mod, name, real))
         setattr(mod, name, shim)
-    # the calls that must launch one kernel each: every varint pack on
-    # cuda, and every streaming flush on cuda, whatever its blocks
+    # the calls that must launch one kernel each: every varint pack, run
+    # scan and digram count on cuda, and every streaming flush on cuda,
+    # whatever its blocks
     packs, flushes = collections.Counter(), []
 
     def pack_shim(values, backend, _real=eb.pack_uvarints_batch):
@@ -1754,6 +1995,20 @@ def main() -> int:
             with lock:
                 packs["cuda"] += 1
         return _real(values, backend)
+
+    def starts_shim(V, backend=None, diff=False, _real=eb.run_starts):
+        rows = len(V) - int(diff)
+        if rows > 0 and eb.resolve(backend, rows) == "cuda":
+            with lock:
+                packs["run_starts"] += 1
+        return _real(V, backend, diff)
+
+    def digram_shim(stream, n_terminals, backend=None,
+                    _real=eb.digram_histogram):
+        if len(stream) >= 2 and eb.resolve(backend, len(stream)) == "cuda":
+            with lock:
+                packs["digrams"] += 1
+        return _real(stream, n_terminals, backend)
 
     def flush_shim(ticks, block_records, backend=None,
                    _real=streaming.compress_timestamps_blocked):
@@ -1765,6 +2020,8 @@ def main() -> int:
                             after - before))
         return blocks
     for mod, name, fn in ((eb, "pack_uvarints_batch", pack_shim),
+                          (eb, "run_starts", starts_shim),
+                          (eb, "digram_histogram", digram_shim),
                           (streaming, "compress_timestamps_blocked",
                            flush_shim)):
         originals.append((mod, name, getattr(mod, name)))
@@ -1782,6 +2039,7 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = _build.launch_counts()
         n_packs, main_flushes = packs["cuda"], list(flushes)
+        n_scans, n_digrams = packs["run_starts"], packs["digrams"]
         serves = {}
         with Phase("serve"):
             serves[SERVE_ARCH] = phase_serve(srv, SERVE_SPECS[0])
@@ -1811,6 +2069,21 @@ def main() -> int:
             f"{[n for *_, n in main_flushes]} times each")
     require(any(b > 1 for _, _, b, _ in main_flushes),
             "no streaming flush on cuda wrote more than one block")
+    # one encode_many and one push_stream on cuda (phase 5); one digram
+    # count a rank and one a unique grammar of the aggregate (phase 6)
+    require(n_scans == 2 and launches.get("row_run_starts", 0) == n_scans,
+            f"{n_scans} run scans on cuda (want 2) launched row_run_starts "
+            f"{launches.get('row_run_starts', 0)} times")
+    want_digrams = N_RANKS + read_inputs["n_grammars"]
+    require(n_digrams == want_digrams
+            and launches.get("digram_counts", 0) == n_digrams,
+            f"{n_digrams} digram counts on cuda (want {want_digrams}) "
+            f"launched digram_counts {launches.get('digram_counts', 0)} "
+            f"times")
+    log(f"main path: {n_scans} run scans on cuda, one row_run_starts "
+        f"launch each, no row_boundaries; {n_digrams} digram counts on "
+        f"cuda ({N_RANKS} ranks, {read_inputs['n_grammars']} unique "
+        f"grammar(s)), one digram_counts launch each, no digram_codes")
     log(f"main path: {n_packs} varint packs on cuda, one uvarint_pack64 "
         f"launch each, no uvarint_encode64; {len(main_flushes)} streaming "
         f"flushes on cuda ((records, records a block, blocks): flushes "
@@ -1832,7 +2105,8 @@ def main() -> int:
     log("prime prefill summary: " + json.dumps(prime))
 
     with Phase("report"):
-        rows = kernel_report(k, p, shapes, launches, read_inputs)
+        rows = kernel_report(k, p, shapes, launches, read_inputs,
+                             run_inputs[0])
         rows += model_kernel_report(k, srv, shapes, serve_counts, ssd_memory)
     shutil.rmtree(WORK, ignore_errors=True)
     log(f"total {time.monotonic() - t_all:.1f} s (build {build_s:.2f} s)")

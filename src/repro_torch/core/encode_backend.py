@@ -301,7 +301,9 @@ def run_boundaries(V: np.ndarray, backend: Optional[str] = None
     """Row-change mask of a (n, k) matrix: ``mask[i]`` iff row i differs
     from row i-1 (``mask[0]`` always True).  The shared building block of
     ``interprocess.arith_segments`` (over row diffs) and
-    ``Sequitur.push_stream`` (over the raw terminal column)."""
+    ``Sequitur.push_stream`` (over the raw terminal column), which call
+    :func:`run_starts`; its ``cuda`` path stays the ``row_boundaries``
+    kernel's."""
     V = np.asarray(V)
     if V.ndim == 1:
         V = V[:, None]
@@ -320,6 +322,33 @@ def run_boundaries(V: np.ndarray, backend: Optional[str] = None
     if n > 1:
         mask[1:] = (V[1:] != V[:-1]).any(axis=1)
     return mask
+
+
+def run_starts(V: np.ndarray, backend: Optional[str] = None,
+               diff: bool = False) -> np.ndarray:
+    """int64 indices of the rows of a (n, k) matrix that start a run: 0
+    and every i whose row differs from row i-1 -- ``flatnonzero`` of
+    :func:`run_boundaries`.  With ``diff`` the rows are those of the first
+    difference ``V[1:] - V[:-1]`` (n - 1 of them).  ``Sequitur.push_stream``
+    takes the starts of the terminal column, ``interprocess.arith_segments``
+    those of the diff rows.  ``torch``/``cuda`` call the ``row_run_starts``
+    wrapper, which takes the difference and compacts the starts on the
+    card; ``numpy`` and ``python`` difference and scan on the host."""
+    V = np.asarray(V)
+    if V.ndim == 1:
+        V = V[:, None]
+    rows = V.shape[0] - int(diff)
+    if rows <= 0:
+        return np.zeros(0, np.int64)
+    eff = resolve(backend, rows * V.shape[1])
+    if eff in ("torch", "cuda"):
+        starts = _gs.row_run_starts(_to_device(V.astype(np.int64,
+                                                        copy=False), eff),
+                                    diff)
+        return starts.cpu().numpy()
+    if diff:
+        V = V[1:] - V[:-1]
+    return np.flatnonzero(run_boundaries(V, eff))
 
 
 # ---------------------------------------------------------------------------
@@ -376,12 +405,15 @@ def digram_histogram(stream: np.ndarray, n_terminals: int,
                                                             int]:
     """Directly-follows (digram) counts over a terminal stream.
 
-    ``torch``/``cuda`` compute the int64 pair codes ``a * n_terminals + b``
-    with the ``digram_codes`` wrapper; the host drops the -1 of position 0
-    and counts the codes with a sort (``np.unique``) instead of the
-    ``numpy`` path's bincount, whose table would need ``n_terminals^2``
-    entries -- terabytes once the codes pass 2^31.  Backends agree
-    exactly, in the same key order."""
+    ``torch``/``cuda`` call the ``digram_counts`` wrapper, which counts
+    the int64 pair codes ``a * n_terminals + b`` on the card and returns
+    only the m distinct codes and their counts, in code order; the host
+    builds the dict from those m pairs.  Unlike the ``numpy`` path's
+    bincount, whose table would need ``n_terminals^2`` entries --
+    terabytes once the codes pass 2^31 -- it takes any T, and it raises
+    on a terminal outside [0, n_terminals).  Backends agree exactly, and
+    ``numpy``, ``torch`` and ``cuda`` give the keys in the same (code)
+    order."""
     stream = np.asarray(stream, np.int64).reshape(-1)
     if stream.size < 2:
         return {}
@@ -396,11 +428,10 @@ def digram_histogram(stream: np.ndarray, n_terminals: int,
             prev = t
         return counts
     if eff in ("torch", "cuda"):
-        codes = _gs.digram_codes(_to_device(stream, eff),
-                                 n_terminals).cpu().numpy()[1:]
-        keys, counts = np.unique(codes, return_counts=True)
-        return {(int(c) // n_terminals, int(c) % n_terminals): int(k)
-                for c, k in zip(keys, counts)}
+        codes, counts = _gs.digram_counts(_to_device(stream, eff),
+                                          n_terminals)
+        return {(c // n_terminals, c % n_terminals): k
+                for c, k in zip(codes.tolist(), counts.tolist())}
     codes = stream[:-1] * n_terminals + stream[1:]
     hist = np.bincount(codes)
     nz = np.flatnonzero(hist)

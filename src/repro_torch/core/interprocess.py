@@ -261,7 +261,7 @@ def arith_segments(V: np.ndarray,
     difference (the run stride), mirroring the streaming protocol of
     ``IntraPatternTracker``: a run's stride is set by its second element and
     the run breaks at the first non-matching row.  ``backend`` dispatches
-    the change-point scan (``encode_backend.run_boundaries`` over the diff
+    the change-point scan (``encode_backend.run_starts`` over the diff
     rows); segmentation is identical across backends.
     """
     n = len(V)
@@ -269,14 +269,10 @@ def arith_segments(V: np.ndarray,
         return []
     if n == 1:
         return [(0, 1)]
-    d = V[1:] - V[:-1]
-    if d.ndim == 1:
-        d = d[:, None]
-    # cp[j] for j >= 1: diff j differs from diff j-1
+    # cp: the j >= 1 where diff j differs from diff j-1 (the starts of
+    # the diff rows without the leading 0)
     from . import encode_backend as _eb
-    mask = _eb.run_boundaries(d, backend)
-    mask[0] = False  # position 0 is forced True by the boundary op
-    cp = np.flatnonzero(mask)
+    cp = _eb.run_starts(V, backend, diff=True)[1:]
     segs: List[Tuple[int, int]] = []
     s = 0
     while s < n:

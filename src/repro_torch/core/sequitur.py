@@ -117,7 +117,7 @@ class Sequitur:
         """Append a whole terminal array with RLE pre-tokenization.
 
         Run boundaries are found in one batched pass
-        (``encode_backend.run_boundaries``: NumPy or the grammar_stats
+        (``encode_backend.run_starts``: NumPy or the grammar_stats
         kernel) and each maximal run enters the grammar as a single
         ``push(term, run_len)`` -- the batch semantics of the existing
         exponent API, so the expansion is always identical to per-terminal
@@ -140,8 +140,7 @@ class Sequitur:
                     run_start = i
             self.push(vals[run_start], n - run_start)
             return
-        mask = _eb.run_boundaries(arr[:, None], eff)
-        starts = np.flatnonzero(mask)
+        starts = _eb.run_starts(arr[:, None], eff)
         ends = np.append(starts[1:], n)
         for s, e in zip(starts.tolist(), ends.tolist()):
             self.push(int(arr[s]), e - s)

@@ -4,10 +4,11 @@ Every ``csrc/<name>.cu`` exposes a plain C interface (pointers, sizes and
 the CUDA stream as ``void*``/``int64_t``; each entry point returns
 ``cudaGetLastError()``), so the build needs no PyTorch headers and takes
 seconds.  A source is compiled at first use into
-``<checkout>/build/kernels/<name>-<hash>.so``: the hash covers the source
-and the compiler flags, so an edited kernel is rebuilt and a stale library
-is never loaded.  Compilation writes to a temporary name and renames it
-into place, so concurrent builders never see a half-written library.
+``<checkout>/build/kernels/<name>-<hash>.so``: the hash covers the source,
+the shared headers and the compiler flags, so an edited kernel is rebuilt
+and a stale library is never loaded.  Compilation writes to a temporary
+name and renames it into place, so concurrent builders never see a
+half-written library.
 
 The wrappers (``delta_encode/ops.py``, ``grammar_stats/ops.py``,
 ``flash_attention/ops.py``, ``rmsnorm/ops.py``, ``ssd_scan/ops.py``) call
@@ -60,7 +61,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: the hash covers the source, the
+    shared headers (``csrc/*.cuh``) and the compiler flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

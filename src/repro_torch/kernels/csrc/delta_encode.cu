@@ -34,6 +34,8 @@
 
 #include <atomic>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -158,43 +160,17 @@ __global__ void uvarint_encode64_kernel(const uint64_t* __restrict__ v,
 // u64 values -> their uvarints packed end to end, in one launch.  A block
 // takes a tile of kPackTile values, 4 a thread (two 16-byte loads where v
 // is 16-byte aligned and the 4 lie inside the array), computes their byte
-// counts, and scans them: across the warp by shuffles, across the warps in
-// shared memory.  The tile's offset in the output comes from a single-pass
-// decoupled look-back: each tile publishes its byte count (kAggregate),
-// then, once it knows the bytes of every tile before it, their sum plus
-// its own (kPrefix), in one 64-bit status word whose top two bits say
-// which; a tile's first warp adds up its predecessors' words, 32 a load,
-// from the nearest back to the first kPrefix.  Tiles are handed out by an
-// atomic counter, not by
-// blockIdx, so every tile a block waits for belongs to a block that
-// already runs (blocks start in no order).  The block stages its bytes in
-// shared memory and writes them out with 4-byte stores, a byte at a time
-// only at the two ragged ends.  The last tile writes the total length.
+// counts, and scans them over the block.  The tile's offset in the output
+// comes from the decoupled look-back of lookback.cuh, run by warp 0 while
+// the others stage their bytes.  The block stages its bytes in shared
+// memory and writes them out with 4-byte stores, a byte at a time only at
+// the two ragged ends.  The last tile writes the total length.
 //
 // status (from the wrapper, zeroed): [0] the tile counter, [1] the total,
-// [2 + t] the word of tile t.
+// [2 + t] the look-back word of tile t.
 constexpr int kPackVals = 4;
 constexpr int kPackTile = kThreads * kPackVals;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned long long kAggregate = 1ull << 62;
-constexpr unsigned long long kPrefix = 2ull << 62;
-constexpr unsigned long long kValue = kAggregate - 1;
-
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p,
-                                             unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
 
 // bytes of the uvarint of v: 7 bits a byte, at least one
 __device__ __forceinline__ int uvarint_len(uint64_t v) {
@@ -211,9 +187,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ long long tile_s;
   __shared__ unsigned long long prefix_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) tile_s = (long long)atomicAdd(status, 1ull);
-  __syncthreads();
-  const int64_t tile = tile_s;
+  const int64_t tile = lookback::take_tile(status, &tile_s);
   const int64_t base = tile * kPackTile + (int64_t)tid * kPackVals;
 
   uint64_t x[kPackVals];
@@ -236,61 +210,14 @@ __global__ void __launch_bounds__(kThreads)
     sum += len[k];
   }
 
-  // the thread's offset within the tile: a warp scan, then one over warps
-  int incl = sum;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += t;
-  }
-  if (lane == 31) warp_incl[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kWarps ? warp_incl[lane] : 0;
-#pragma unroll
-    for (int off = 1; off < kWarps; off <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w += t;
-    }
-    if (lane < kWarps) warp_incl[lane] = w;
-  }
-  __syncthreads();
-  const int excl = (warp ? warp_incl[warp - 1] : 0) + incl - sum;
-  const int agg = warp_incl[kWarps - 1];
+  // the thread's offset within the tile, and the tile's byte count
+  int agg;
+  const int excl =
+      lookback::block_exclusive_scan<kThreads>(sum, warp_incl, &agg);
 
-  // the look-back, by warp 0 while the others stage their bytes: 32 words
-  // at a time, nearest first, until one holds a prefix; each word up to
-  // that one must be published (non-zero), else the window is read again
   if (warp == 0) {
-    const unsigned long long* tiles = status + 2;
-    unsigned long long prefix = 0;
-    if (tile == 0) {
-      if (lane == 0) store_status(status + 2, kPrefix | (unsigned)agg);
-    } else {
-      if (lane == 0)
-        store_status(status + 2 + tile, kAggregate | (unsigned)agg);
-      for (int64_t j0 = tile - 1;;) {
-        const int64_t j = j0 - lane;
-        // before tile 0 (which holds a prefix): a prefix of 0
-        const unsigned long long w =
-            j >= 0 ? load_status(tiles + j) : kPrefix;
-        const unsigned pmask = __ballot_sync(0xffffffffu, (w & kPrefix) != 0);
-        const unsigned zmask = __ballot_sync(0xffffffffu, w == 0);
-        // lanes 0 .. the first holding a prefix (all 32 if none does)
-        const unsigned upto = pmask ? (pmask & (0u - pmask)) * 2u - 1u
-                                    : 0xffffffffu;
-        if (zmask & upto) continue;
-        unsigned long long part = (upto >> lane) & 1u ? w & kValue : 0;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          part += __shfl_down_sync(0xffffffffu, part, off);
-        prefix += __shfl_sync(0xffffffffu, part, 0);
-        if (pmask) break;
-        j0 -= 32;
-      }
-      if (lane == 0)
-        store_status(status + 2 + tile, kPrefix | (prefix + (unsigned)agg));
-    }
+    const unsigned long long prefix =
+        lookback::tile_prefix(status + 2, tile, (unsigned)agg);
     if (lane == 0) {
       prefix_s = prefix;
       if (tile == (int64_t)gridDim.x - 1) status[1] = prefix + (unsigned)agg;

@@ -1,3 +1,3 @@
-from .ops import row_boundaries
+from .ops import digram_counts, row_boundaries, row_run_starts
 
-__all__ = ["row_boundaries"]
+__all__ = ["digram_counts", "row_boundaries", "row_run_starts"]

@@ -32,8 +32,10 @@ from repro_torch.kernels.delta_encode.ref import (delta_zigzag_ref,
                                                   uvarint_pack64_ref)
 from repro_torch.kernels.grammar_stats import ops as gs
 from repro_torch.kernels.grammar_stats.ref import (digram_codes_ref,
+                                                   digram_counts_ref,
                                                    histogram_ref,
-                                                   row_boundaries_ref)
+                                                   row_boundaries_ref,
+                                                   row_run_starts_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -130,6 +132,69 @@ def test_row_boundaries(dev, n, k):
     V = torch.from_numpy(V.astype(np.int64))
     assert torch.equal(gs.row_boundaries(V.to(dev)).cpu(),
                        row_boundaries_ref(V))
+
+
+def _run_rows(n, k, seed, long_run=False):
+    """(n, k) int64 rows in runs of 1 to 7 equal rows, a third of them
+    near 2^63 and a third near -2^63, so that differences wrap; with
+    ``long_run`` one arithmetic run ending at 2^63 - 1."""
+    rng = np.random.RandomState(seed)
+    if long_run:
+        V = (np.arange(n)[:, None] * rng.randint(1, 9, size=(1, k))
+             + rng.randint(-9, 9, size=(1, k))).astype(np.int64)
+        V -= V.max()
+        return torch.from_numpy(V + np.int64((1 << 63) - 1))
+    vals = rng.randint(0, 3, size=(n, k)).astype(np.int64)
+    vals[::3] += np.int64(3 << 61)
+    vals[1::3] -= np.int64(3 << 61)
+    V = np.repeat(vals, rng.randint(1, 8, size=n), axis=0)[:n]
+    return torch.from_numpy(np.ascontiguousarray(V))
+
+
+# tiles of 1,024 rows: one row either side of a tile edge, primes
+@pytest.mark.parametrize("diff", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n", [1, 2, 3, 1023, 1024, 1025, 4099, 65537])
+def test_row_run_starts(dev, n, k, diff):
+    """Every run start, 16-byte loads and (off alignment) scalar ones, k
+    in the register path (1-2) and past it (3-5)."""
+    if diff and n < 2:
+        with pytest.raises(ValueError):
+            gs.row_run_starts(_run_rows(n, k, 0).to(dev), diff)
+        return
+    for long_run in (False, True):
+        V = _run_rows(n, k, n * k + diff, long_run)
+        want = row_run_starts_ref(V, diff)
+        got = gs.row_run_starts(V.to(dev), diff)
+        assert got.dtype == torch.int64 and torch.equal(got.cpu(), want)
+        shifted = torch.cat([torch.zeros((1, k), dtype=torch.int64),
+                             V]).to(dev)[1:]
+        assert torch.equal(gs.row_run_starts(shifted, diff).cpu(), want)
+
+
+# T 241 is the dense route's last on the H100; from 242 the codes are
+# formed by digram_codes and counted by a sort
+@pytest.mark.parametrize("T", [1, 6, 241, 242, 4096, 1 << 20])
+@pytest.mark.parametrize("n", [1, 2, 3, 4099, 65537])
+def test_digram_counts(dev, n, T):
+    s = np.random.RandomState(n + T).randint(0, T, size=n).astype(np.int64)
+    s[: n // 2: 2] = 0                      # two hot codes, as IOR's
+    s[1: n // 2: 2] = T - 1
+    s = torch.from_numpy(s)
+    want = digram_counts_ref(s, T)
+    for x in (s.to(dev), torch.cat([s[:1], s]).to(dev)[1:]):
+        got = gs.digram_counts(x, T)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int64 and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("T", [6, 4096])
+@pytest.mark.parametrize("bad", [-1, 4096, 1 << 40])
+def test_digram_counts_raise_on_the_card(dev, T, bad):
+    s = torch.arange(5000, dtype=torch.int64) % T
+    s[4321] = bad if bad != 4096 else T
+    with pytest.raises(ValueError, match="outside"):
+        gs.digram_counts(s.to(dev), T)
 
 
 @pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 4099, 65537])

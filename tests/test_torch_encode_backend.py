@@ -253,8 +253,10 @@ def card_on_cpu(monkeypatch):
     monkeypatch.setattr(eb, "_to_device",
                         lambda a, b: torch.from_numpy(np.ascontiguousarray(a)))
     for mod, name in ((de, "delta_zigzag_varint"), (gs, "histogram"),
-                      (gs, "digram_codes"), (de, "delta_zigzag"),
-                      (de, "uvarint_pack64"), (de, "uvarint_encode64")):
+                      (gs, "digram_codes"), (gs, "digram_counts"),
+                      (gs, "row_boundaries"), (gs, "row_run_starts"),
+                      (de, "delta_zigzag"), (de, "uvarint_pack64"),
+                      (de, "uvarint_encode64")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name: (
             calls.append(_n) or _r(*a)))
@@ -276,7 +278,27 @@ def test_cuda_route_takes_the_kernels_at_any_width(card_on_cpu):
     ticks = _flat_ticks(3000, seed=9)
     assert (eb.encode_ticks_varint(ticks, "cuda")
             == ref_eb.encode_ticks_varint(ticks, "python"))
-    assert card_on_cpu == ["histogram", "digram_codes", "delta_zigzag_varint"]
+    assert card_on_cpu == ["histogram", "digram_counts",
+                           "delta_zigzag_varint"]
+
+
+def test_cuda_route_finds_run_starts_on_the_card(card_on_cpu):
+    """``push_stream`` and ``arith_segments`` on ``cuda`` take their run
+    starts from one ``row_run_starts`` call each (``arith_segments`` with
+    the row differences taken by the wrapper), never ``row_boundaries``;
+    the grammar and the segments equal the reference's."""
+    rng = np.random.RandomState(8)
+    stream = np.repeat(rng.randint(0, 9, size=700),
+                       rng.randint(1, 6, size=700)).tolist()
+    ref_s, s = RefSequitur(), Sequitur()
+    ref_s.push_stream(stream, backend="python")
+    s.push_stream(stream, backend="cuda")
+    V = np.concatenate([np.arange(0, 900, 3), rng.randint(0, 4, size=200),
+                        np.full(50, 7)]).astype(np.int64).reshape(-1, 1)
+    V = np.concatenate([V, V // 2], axis=1)
+    assert arith_segments(V, "cuda") == ref_arith(V, "python")
+    assert card_on_cpu == ["row_run_starts", "row_run_starts"]
+    assert s.serialize() == ref_s.serialize()
 
 
 def test_cuda_route_packs_and_encodes_a_flush_in_one_call(card_on_cpu):

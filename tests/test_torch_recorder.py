@@ -254,7 +254,8 @@ def counted_wrappers(monkeypatch):
                          (de_ops, "uvarint_encode64"),
                          (de_ops, "uvarint_pack64"),
                          (de_ops, "fit_columns"),
-                         (gs_ops, "row_boundaries")):
+                         (gs_ops, "row_boundaries"),
+                         (gs_ops, "row_run_starts")):
         counting(module, name)
     _build.reset_launches()
     yield
@@ -276,9 +277,9 @@ def test_finalize_routes_through_kernel_wrappers(tmp_path, counted_wrappers):
     assert "uvarint_encode64" not in flat
     assert flat.get("fit_columns", 0) == 1             # one batched fit
     # the Recorder does not segment runs itself; the batched pattern
-    # encoders do, and they reach row_boundaries
+    # encoders do, and they reach row_run_starts (not row_boundaries)
     _build.reset_launches()
     IntraPatternTracker().encode_many("k", [(8 * i,) for i in range(100)],
                                       backend="torch")
     Sequitur().push_stream([1] * 50 + [2] * 50, backend="torch")
-    assert _build.launch_counts().get("row_boundaries", 0) == 2
+    assert _build.launch_counts() == {"row_run_starts": 2}
