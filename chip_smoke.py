@@ -52,7 +52,19 @@ csrc`` and then runs, in order:
                 the three IOR jobs answering every query family, the
                 ``traceserve`` CLI in a subprocess, and a live streaming
                 job folded one segment per committed epoch;
-7. serve     -- the model workload the tracer watches: qwen3-32b at every
+7. multiproc -- phase 3's IOR jobs on 32 processes over ``TorchDistComm``
+                (``run_process_world``: ranks over a FileStore under
+                ``build/chip_smoke``, no process group), tree and flat on ``cuda`` and the
+                same calls streaming a flush every 4,096 records; tree and
+                flat must write phase 3's ``tree-cuda`` bytes, the
+                streaming job what the same calls write on ThreadComm here,
+                and every job must launch what its ThreadComm run launched,
+                ``delta_zigzag`` once a rank (once a flush a rank
+                streaming) and ``fit_columns`` once on rank 0 of the flat
+                job only; it prints each job's wall time, every rank's
+                record time, the finalize timed apart (rank 0's and the
+                slowest rank's) and rank 0's device busy time;
+8. serve     -- the model workload the tracer watches: qwen3-32b at every
                 published width, 16 of its 64 layers, bf16, random weights
                 from a seeded generator, served by ``ServeEngine`` (4
                 prompts of 1,024 tokens, 32 new tokens each) on the kernel
@@ -62,20 +74,22 @@ csrc`` and then runs, in order:
                 and prompts run again on the plain ``"torch"`` attention
                 path to compare with; the qwen3-32b smoke model on the
                 card must give the CPU's logits and tokens;
-8. serve_ssm -- the same for the SSM family, mamba2-370m at full depth (48
+9. serve_ssm -- the same for the SSM family, mamba2-370m at full depth (48
                 layers), and the hybrid one, hymba-1.5b at full depth (32
                 layers), with 4 prompts of 2,048 tokens each; their plain
                 run flips both ``attn_impl`` and ``ssm_impl`` to
                 ``"torch"``; then a mamba2 prefill of 4 prompts of 2,053
                 tokens (a prime: Q 1), kernel path against plain path, with
                 its peak memory;
-9. report    -- the kernels' launch counts from phases 3-6 and from the
+10. report   -- the kernels' launch counts from phases 3-6 and from the
                 serve runs (each must be above 0, but 0 for the direct
                 counterparts that the main path no longer launches:
                 ``uvarint_encode64``, ``row_boundaries``, ``digram_codes``)
                 and their times at the shapes those phases gave them, and
                 ``digram_counts`` and ``row_run_starts`` also at
-                16,777,216 terminals / rows, as one JSON line: device
+                16,777,216 terminals / rows, ``fit_columns`` at its five
+                ``FIT_SHAPES`` (up to 65,536 columns and 16,384 ranks),
+                as one JSON line: device
                 time per call, summed over the kernels a call launches
                 (the bf16 SSD scan launches three); flash attention and
                 the SSD scan also at hymba's serve shape
@@ -356,15 +370,23 @@ def phase_kernels(k, ssm_calls: dict) -> dict:
                  f"uvarint_pack64 n={n} unaligned")
     log("delta_zigzag with segments 0, 1, 3, 4, 5, 33, 12,288 and "
         "uvarint_pack64 exact at n 1..16,777,216, aligned and not")
-    for c, r in ((4096, 32), (1, 2), (257, 3), (32, 32)):
+    # a thread a row up to 64 ranks (fit_plan's edge on the H100), then a
+    # warp a span; rows split over spans; column slices (rows off 16-byte
+    # alignment)
+    fit_shapes = ((4096, 32), (1, 2), (257, 3), (32, 32), (3, 64), (3, 65),
+                  (257, 4099), (3, 16384), (65536, 65), (65536, 64),
+                  (65536, 3))
+    for c, r in fit_shapes:
         for base in (0, 1 << 31, (1 << 61)):
-            V = torch.from_numpy(fit_matrix(c, r, c + r, base)).to(dev)
-            f, d = k.de.fit_columns(V)
-            fp, dp = k.de_ref.fit_columns_ref(V)
-            same(f, fp, f"fit_columns flags {c}x{r} base={base}")
-            same(d, dp, f"fit_columns d0 {c}x{r} base={base}")
-    log("fit_columns exact at (4096, 32), (1, 2), (257, 3), (32, 32), "
-        "values >= 2^31")
+            W = torch.from_numpy(fit_matrix(c, r + 1, c + r, base)).to(dev)
+            for V, how in ((W[:, :r].contiguous(), ""),
+                           (W[:, 1:], " column slice")):
+                f, d = k.de.fit_columns(V)
+                fp, dp = k.de_ref.fit_columns_ref(V)
+                same(f, fp, f"fit_columns flags {c}x{r} base={base}{how}")
+                same(d, dp, f"fit_columns d0 {c}x{r} base={base}{how}")
+    log(f"fit_columns exact at {list(fit_shapes)}, values >= 2^31, "
+        f"contiguous and as a column slice")
     for n, kk in ((65535, 3), (1, 1), (257, 1), (4099, 2)):
         for base in (0, 1 << 40):
             R = np.random.RandomState(n).randint(0, 2, size=(n, kk)) + base
@@ -698,27 +720,45 @@ def ior_ticks(rank: int) -> np.ndarray:
     return np.cumsum(rng.randint(1, 40, size=2 * n)).reshape(n, 2)
 
 
-def run_ior(p, trace_dir: str, topology: str, backend: str) -> None:
-    """One IOR job: ranks are threads feeding ``Recorder.record`` with
-    explicit ticks (the facade's wrapper slot is process-global)."""
-    fid = {n: p.REGISTRY.id_of(n)
+def ior_record(rec, comm, registry, rank: int, flush_every: int = 0
+               ) -> None:
+    """Rank ``rank``'s IOR calls into ``rec`` with explicit ticks; with
+    ``flush_every``, a (collective) ``rec.flush(comm)`` every that many
+    records."""
+    fid = {n: registry.id_of(n)
            for n in ("open", "lseek", "write", "fsync", "close")}
-    path = "/scratch/ior/testFile"
+    t = iter(ior_ticks(rank).tolist())
+    done = 0
 
+    def record(f, args, ret):
+        nonlocal done
+        rec.record(f, args, ret, 0, *next(t))
+        done += 1
+        if flush_every and done % flush_every == 0:
+            rec.flush(comm)
+
+    fd = 3
+    record(fid["open"], ("/scratch/ior/testFile", os.O_RDWR | os.O_CREAT,
+                         0o644), fd)
+    for i in range(N_ITER):
+        off = rank * XFER + i * N_RANKS * XFER
+        record(fid["lseek"], (fd, off, 0), off)
+        record(fid["write"], (fd, XFER), XFER)
+    record(fid["fsync"], (fd,), 0)
+    record(fid["close"], (fd,), 0)
+    rec.forget_handle(fd)
+
+
+def run_ior(p, trace_dir: str, topology: str, backend: str,
+            flush_every: int = 0) -> None:
+    """One IOR job: ranks are threads feeding ``Recorder.record`` with
+    explicit ticks (the facade's wrapper slot is process-global); with
+    ``flush_every``, a streaming job flushed every that many records."""
     def worker(comm, rank):
         rec = p.Recorder(rank=rank, config=p.RecorderConfig(
-            finalize_topology=topology, encode_backend=backend))
-        t = iter(ior_ticks(rank).tolist())
-        fd = 3
-        rec.record(fid["open"], (path, os.O_RDWR | os.O_CREAT, 0o644), fd,
-                   0, *next(t))
-        for i in range(N_ITER):
-            off = rank * XFER + i * N_RANKS * XFER
-            rec.record(fid["lseek"], (fd, off, 0), off, 0, *next(t))
-            rec.record(fid["write"], (fd, XFER), XFER, 0, *next(t))
-        rec.record(fid["fsync"], (fd,), 0, 0, *next(t))
-        rec.record(fid["close"], (fd,), 0, 0, *next(t))
-        rec.forget_handle(fd)
+            finalize_topology=topology, encode_backend=backend,
+            trace_dir=trace_dir if flush_every else None))
+        ior_record(rec, comm, p.REGISTRY, rank, flush_every)
         return rec.finalize(comm, trace_dir=trace_dir)
 
     shutil.rmtree(trace_dir, ignore_errors=True)
@@ -734,14 +774,24 @@ def device_busy_ms(prof) -> float:
     return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
 
 
-def phase_ior(p) -> dict:
+def counts_since(build, before: dict) -> dict:
+    """Launches counted since the snapshot ``before``."""
+    now = build.launch_counts()
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
+
+
+def phase_ior(p) -> tuple:
+    """The three IOR jobs; returns their ``*.bin`` files and the launches
+    each job made, by job."""
     from torch.profiler import ProfilerActivity, profile
-    runs = {}
+    runs, counts = {}, {}
     for name, topology, backend in (("tree-cuda", "tree", BACKEND),
                                     ("flat-cuda", "flat", BACKEND),
                                     ("tree-numpy", "tree", "numpy")):
         d = os.path.join(WORK, "ior", name)
         p.eb.set_default_backend(backend)
+        before = p.build.launch_counts()
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t = time.monotonic()
@@ -750,6 +800,7 @@ def phase_ior(p) -> dict:
                 secs = time.monotonic() - t
         finally:
             p.eb.set_default_backend(BACKEND)
+        counts[name] = counts_since(p.build, before)
         runs[name] = bin_files(d)
         busy = device_busy_ms(prof)
         log(f"IOR {name}: {N_RANKS} ranks x {2 * N_ITER + 3} records in "
@@ -776,8 +827,145 @@ def phase_ior(p) -> dict:
         require(ticks == [tuple(t) for t in ior_ticks(rank).tolist()],
                 f"rank {rank}: timestamps differ")
     log(f"reader: ranks 0, {N_RANKS // 2 + 1}, {N_RANKS - 1} give back every "
-        f"offset, size and tick")
-    return runs
+        f"offset, size and tick; launches by job: {counts}")
+    return runs, counts
+
+
+# phase multiproc: the IOR jobs on N_RANKS processes over TorchDistComm
+MP_RUNS = (("tree", "tree", 0), ("flat", "flat", 0),
+           ("stream", "tree", 4096))      # (job, topology, records a flush)
+MP_DEADLINE_S = 300.0
+
+
+def mp_rank(comm, rank: int, root: str) -> dict:
+    """One process of phase multiproc: the IOR calls of rank ``rank`` in
+    each of ``MP_RUNS`` on ``cuda``, finalized over ``comm``; the ranks
+    start each job together and start its finalize together.  Rank 0 gets
+    every rank's record and finalize seconds and launch counts (the
+    counts are per process, set to 0 before each job) and its own device
+    busy time over the job."""
+    import contextlib
+
+    import repro_torch.core.apis  # noqa: F401  (populate the registry)
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.recorder import Recorder, RecorderConfig
+    from repro_torch.core.specs import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.delta_encode import ops as de
+
+    # the CUDA context, the finalize's kernels and rank 0's profiler start,
+    # before any clock
+    de.delta_zigzag(torch.zeros(4, dtype=torch.int32, device="cuda"))
+    de.uvarint_pack64(torch.zeros(4, dtype=torch.int64, device="cuda"))
+    de.fit_columns(torch.zeros((2, 2), dtype=torch.int64, device="cuda"))
+    if rank == 0:
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    out = {}
+    for name, topology, flush in MP_RUNS:
+        d = os.path.join(root, name)
+        _build.reset_launches()
+        comm.barrier()
+        with (profile(activities=[ProfilerActivity.CUDA]) if rank == 0
+              else contextlib.nullcontext()) as prof:
+            t0 = time.monotonic()
+            rec = Recorder(rank=rank, config=RecorderConfig(
+                finalize_topology=topology, encode_backend=BACKEND,
+                trace_dir=d if flush else None))
+            ior_record(rec, comm, REGISTRY, rank, flush)
+            t1 = time.monotonic()
+            comm.barrier()
+            t2 = time.monotonic()
+            stats = rec.finalize(comm, trace_dir=d)
+            torch.cuda.synchronize()
+            t3 = time.monotonic()
+        out[name] = comm.gather({
+            "t0": t0, "t3": t3, "record_s": t1 - t0, "finalize_s": t3 - t2,
+            "launches": _build.launch_counts(),
+            "n_records": None if stats is None else stats.n_records,
+            "busy_ms": device_busy_ms(prof) if rank == 0 else None})
+    return out
+
+
+def phase_multiproc(p, ior_runs: dict, ior_counts: dict) -> dict:
+    """``MP_RUNS`` on ``N_RANKS`` processes (``run_process_world``: ranks
+    over a FileStore under ``WORK``, no process group).  Tree and flat must write phase
+    3's ``tree-cuda`` bytes and launch what its jobs launched, summed over
+    the processes: ``delta_zigzag`` once a rank, ``fit_columns`` once on
+    rank 0 in the flat job and never in the tree job.  The streaming job
+    must write what the same calls write on ThreadComm in this process and
+    launch as much, ``delta_zigzag`` once a flush a rank."""
+    root = os.path.join(WORK, "multiproc")
+    shutil.rmtree(root, ignore_errors=True)
+    flush = dict((n, f) for n, _, f in MP_RUNS)["stream"]
+    before = p.build.launch_counts()
+    t = time.monotonic()
+    run_ior(p, os.path.join(root, "threads-stream"), "tree", BACKEND, flush)
+    torch.cuda.synchronize()
+    thread_s = time.monotonic() - t
+    want = {"tree": ior_runs["tree-cuda"], "flat": ior_runs["tree-cuda"],
+            "stream": bin_files(os.path.join(root, "threads-stream"))}
+    want_counts = {"tree": ior_counts["tree-cuda"],
+                   "flat": ior_counts["flat-cuda"],
+                   "stream": counts_since(p.build, before)}
+    log(f"ThreadComm streaming IOR (a flush every {flush} records): "
+        f"{thread_s:.2f} s, launches {want_counts['stream']}")
+    before = p.build.launch_counts()
+    t = time.monotonic()
+    res = p.run_process_world(N_RANKS, mp_rank, (root,),
+                              deadline_s=MP_DEADLINE_S,
+                              workdir=os.path.join(root, "world"))
+    world_s = time.monotonic() - t
+    require(counts_since(p.build, before) == {},
+            "this process launched kernels while the processes ran")
+    n_rec = 2 * N_ITER + 3
+    epochs = -(-n_rec // flush)
+    summary = {"processes": N_RANKS, "cpu_count": os.cpu_count(),
+               "world_s": world_s, "threadcomm_stream_s": thread_s}
+    for name, _topology, _flush in MP_RUNS:
+        rows = res[0][name]
+        require(all(r[name] is None for r in res[1:]),
+                "gather returned off rank 0")
+        require(rows[0]["n_records"] == n_rec
+                and all(r["n_records"] is None for r in rows[1:]),
+                f"{name}: finalize stats {[r['n_records'] for r in rows]}")
+        got = bin_files(os.path.join(root, name))
+        require(got == want[name],
+                f"{name} over {N_RANKS} processes: .bin files differ "
+                f"({digest(got)[:16]} vs {digest(want[name])[:16]})")
+        per_rank = [r["launches"] for r in rows]
+        total = collections.Counter()
+        for c in per_rank:
+            total.update(c)
+        require(dict(total) == want_counts[name],
+                f"{name}: launches {dict(total)} summed over the processes, "
+                f"want {want_counts[name]}")
+        dz = [c.get("delta_zigzag", 0) for c in per_rank]
+        require(dz == [epochs if name == "stream" else 1] * N_RANKS,
+                f"{name}: delta_zigzag launches by rank {dz}")
+        fits = [c.get("fit_columns", 0) for c in per_rank]
+        require(fits == [1 if name == "flat" else 0] + [0] * (N_RANKS - 1),
+                f"{name}: fit_columns launches by rank {fits}")
+        rec_s = [r["record_s"] for r in rows]
+        fin_s = [r["finalize_s"] for r in rows]
+        summary[name] = {
+            "wall_s": max(r["t3"] for r in rows) - min(r["t0"] for r in rows),
+            "record_s": rec_s, "finalize_rank0_s": fin_s[0],
+            "finalize_slowest_s": max(fin_s),
+            "rank0_device_busy_ms": rows[0]["busy_ms"],
+            "launches": dict(total), "sha256": digest(got)[:16]}
+        log(f"multiproc {name}: {N_RANKS} processes x {n_rec} records, wall "
+            f"{summary[name]['wall_s']:.2f} s; record {min(rec_s):.2f}-"
+            f"{max(rec_s):.2f} s a rank; finalize rank 0 {fin_s[0]:.3f} s, "
+            f"slowest {max(fin_s):.3f} s; rank 0 device busy "
+            f"{rows[0]['busy_ms']} ms; .bin sha256 "
+            f"{summary[name]['sha256']}, as "
+            f"{'ThreadComm' if name == 'stream' else 'phase 3 tree-cuda'}; "
+            f"launches {dict(total)}")
+    log(f"multiproc: {N_RANKS} processes on {os.cpu_count()} CPUs, world "
+        f"{world_s:.2f} s (start-up, three jobs, shut-down)")
+    return summary
 
 
 class FakeClock:
@@ -1460,7 +1648,7 @@ def kernel_report(k, p, shapes: dict, launches: dict,
             lambda x: 6 * x.numel() + 4 * varint_bytes(k, x), None),
         "fit_columns": (
             k.de.fit_columns, k.de_ref.fit_columns_ref, DE_SRC,
-            f"{DE_TPU}:202", "fit_columns_kernel",
+            f"{DE_TPU}:202", "fit_columns_",
             lambda x: 8 * x.numel() + 12 * x.shape[0],
             lambda x: 4 * x.numel(), None),
         "row_boundaries": (
@@ -1577,6 +1765,8 @@ def kernel_report(k, p, shapes: dict, launches: dict,
     for row in rows:
         if row["name"] in big:
             row["at_16m"] = big[row["name"]]
+        if row["name"] == "fit_columns":
+            row["at_shapes"] = fit_report(k, p.eb)
     return rows
 
 
@@ -1639,6 +1829,86 @@ def big_report(k) -> dict:
             (4 if diff else 2) * x.numel(), 20,
             library=lambda: run_starts_library(x, diff)))
     return out
+
+
+# the fit_columns shapes of the report: (C, R), what each stands for
+FIT_SHAPES = (((6, 32), "the main path (IOR's columns, 32 ranks)"),
+              ((6, 16384), "IOR's columns at 16,384 ranks"),
+              ((256, 16384), "a richer CST at 16,384 ranks"),
+              ((65536, 32), "many signatures at 32 ranks"),
+              ((65536, 4), "small R"))
+
+
+def fit_report(k, eb) -> list:
+    """``fit_columns`` at ``FIT_SHAPES`` (rows mixing constant, linear and
+    irregular, ``fit_matrix``): exact against the plain version, then per
+    shape its planned route (``fit_plan``, computed from the SM count, C
+    and R: not read from the launch), the wrapper's ms (CUDA events), device
+    ms warm and with L2 flushed (profiler), the bytes bound (8 C R read, 12
+    C written), its share of the L2-flushed device time, the plain
+    version's ms, the host's copy of the matrix to the card from pageable
+    and through pinned memory, and the dispatch's (``eb.fit_classify``
+    from numpy) on ``cuda`` and on ``numpy`` (host clock).  No single
+    PyTorch call computes this function."""
+    dev = torch.device("cuda")
+    rows = []
+
+    def sync(t):
+        torch.cuda.synchronize()
+        return t
+
+    for (c, r), what in FIT_SHAPES:
+        host = fit_matrix(c, r, c + r, 0)
+        t_host = torch.from_numpy(host)
+        x = t_host.to(dev)
+        got = k.de.fit_columns(x)
+        want = k.de_ref.fit_columns_ref(x)
+        for g, w in zip(got, want):
+            require(torch.equal(g, w), f"fit_columns ({c}, {r}): kernel != "
+                    f"plain")
+        dispatches = 200 if c * r < 1 << 20 else 10   # host clock: many
+        # an older checkout (chip_ab.py) has one kernel and no plan
+        plan = getattr(k.de, "fit_plan", None)
+        route, span, nspans = plan(c, r, dev) if plan else (None, r, 1)
+        recorded = {}
+        bytes_ms = (8 * c * r + 12 * c) / HBM_BYTES_PER_S * 1e3
+        row = {"shape": [c, r], "what": what,
+               "ms": cuda_ms(lambda: k.de.fit_columns(x)),
+               "device_ms": device_kernel_ms(lambda: k.de.fit_columns(x),
+                                             "fit_columns", recorded=recorded),
+               "device_cold_ms": device_kernel_ms(
+                   lambda: k.de.fit_columns(x), "fit_columns", cold=True),
+               "planned_route": route, "planned_span": span,
+               "planned_spans": nspans,
+               "device_launches": {"recorded": recorded, "of": 20},
+               "bound_ms": bytes_ms, "bound_by": "bytes",
+               "plain_ms": cuda_ms(lambda: k.de_ref.fit_columns_ref(x)),
+               "library_ms": None,
+               "h2d_pageable_ms": host_ms(
+                   lambda: sync(t_host.to(dev)), iters=dispatches),
+               "h2d_pinned_ms": host_ms(
+                   lambda: sync(t_host.pin_memory().to(dev,
+                                                       non_blocking=True)),
+                   iters=dispatches),
+               "dispatch_cuda_ms": host_ms(
+                   lambda: eb.fit_classify(host, "cuda"), iters=dispatches),
+               "dispatch_numpy_ms": host_ms(
+                   lambda: eb.fit_classify(host, "numpy"),
+                   iters=dispatches)}
+        row["share"] = (bytes_ms / row["device_cold_ms"]
+                        if row["device_cold_ms"] else None)
+        log(f"fit_columns at ({c}, {r}) ({what}): kernel {row['ms']:.4f} ms "
+            f"per call (device {row['device_ms']} ms, L2 flushed "
+            f"{row['device_cold_ms']} ms; planned {route}, {nspans} "
+            f"span(s) a row, {span} ranks a step), bound "
+            f"{bytes_ms:.6f} ms, share {row['share']}, plain "
+            f"{row['plain_ms']:.4f} ms; H2D pageable "
+            f"{row['h2d_pageable_ms']:.4f} ms, pinned "
+            f"{row['h2d_pinned_ms']:.4f} ms; dispatch cuda "
+            f"{row['dispatch_cuda_ms']:.4f} ms vs numpy "
+            f"{row['dispatch_numpy_ms']:.4f} ms")
+        rows.append(row)
+    return rows
 
 
 FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -1890,7 +2160,7 @@ def main() -> int:
     from repro_torch.core import encode_backend as eb
     from repro_torch.core import recorder, streaming
     from repro_torch.core.apis import posix
-    from repro_torch.core.comm import run_thread_world
+    from repro_torch.core.comm import run_process_world, run_thread_world
     from repro_torch.core.patterns import IntraPatternTracker
     from repro_torch.core import trace_format
     from repro_torch.core.reader import TraceReader
@@ -1934,6 +2204,7 @@ def main() -> int:
                         RecorderConfig=recorder.RecorderConfig,
                         session=recorder.session, REGISTRY=REGISTRY,
                         run_thread_world=run_thread_world,
+                        run_process_world=run_process_world, build=_build,
                         TraceReader=TraceReader, Sequitur=Sequitur,
                         IntraPatternTracker=IntraPatternTracker,
                         expand_grammar=expand_grammar,
@@ -2029,7 +2300,7 @@ def main() -> int:
     _build.reset_launches()
     try:
         with Phase("ior"):
-            phase_ior(p)
+            ior_runs, ior_counts = phase_ior(p)
         with Phase("facade"):
             phase_facade(p)
         with Phase("patterns"):
@@ -2040,6 +2311,8 @@ def main() -> int:
         launches = _build.launch_counts()
         n_packs, main_flushes = packs["cuda"], list(flushes)
         n_scans, n_digrams = packs["run_starts"], packs["digrams"]
+        with Phase("multiproc"):
+            multiproc = phase_multiproc(p, ior_runs, ior_counts)
         serves = {}
         with Phase("serve"):
             serves[SERVE_ARCH] = phase_serve(srv, SERVE_SPECS[0])
@@ -2103,6 +2376,7 @@ def main() -> int:
         {a: {k: v for k, v in r.items() if k != "top_kernels"}
          for a, r in serves.items()}))
     log("prime prefill summary: " + json.dumps(prime))
+    log("multiproc summary: " + json.dumps(multiproc))
 
     with Phase("report"):
         rows = kernel_report(k, p, shapes, launches, read_inputs,

@@ -22,10 +22,18 @@ Implementations:
               true point-to-point ``send``/``recv`` over per-pair
               mailboxes, so ``reduce_tree`` runs the genuine log-round
               pairwise schedule (no shared-slot barrier walk).
+  TorchDistComm  N processes of a ``torch.distributed`` group (one host
+              or many), with ThreadComm's contract: per-pair FIFO
+              ``send``/``recv`` with timeouts, ``gather``, ``bcast``,
+              ``scatter``, ``barrier``, ``vote_any`` and ``dup``, all on
+              the group's key-value store
+              (``distributed.sharding.StoreByteTransport``);
+              :func:`run_process_world` runs a function on N spawned
+              processes over it, as :func:`run_thread_world` does on
+              threads.
 
-A multi-host communicator over ``torch.distributed`` is not part of this
-package yet; :func:`reduce_tree_via_exchange` is the schedule a collective
-byte exchange plugs into.
+:func:`reduce_tree_via_exchange` is the schedule a collective byte
+exchange (one call per round on every rank) plugs into.
 
 Point-to-point transports advertise ``has_p2p``; the base ``reduce_tree``
 then runs the distributed schedule directly on ``send``/``recv``.
@@ -49,9 +57,17 @@ collective's pairing exactly).
 
 from __future__ import annotations
 
+import os
+import pickle
 import queue
+import shutil
+import tempfile
 import threading
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..distributed.sharding import StoreByteTransport, dumps, global_any
 
 #: seconds a ThreadComm recv waits before concluding the peer is gone
 #: (the default; per-call ``recv(..., timeout=)`` and the degraded
@@ -501,3 +517,260 @@ def run_thread_world(size: int, fn: Callable[[Comm, int], Any]) -> List[Any]:
         if e is not None:
             raise e
     return results
+
+
+class TorchDistComm(Comm):
+    """The ranks of an initialised ``torch.distributed`` default group as
+    a :class:`Comm`: the counterpart of the JAX package's ``JaxComm``, with
+    ThreadComm's whole contract across processes.
+
+    ``TorchDistComm()`` takes the rank, the size and the key-value store of
+    the default group (``torchrun``'s, or ``init_process_group("gloo",
+    init_method="file://...", rank=, world_size=)``'s);
+    :meth:`over_store` takes them without a group, from a store that every
+    rank shares (what :func:`run_process_world` does).  Everything travels
+    on the store
+    (:class:`~repro_torch.distributed.sharding.StoreByteTransport`), pickled
+    (a CUDA tensor inside a payload raises TypeError):
+
+    - ``send``/``recv``: per-pair FIFO mailboxes; ``recv`` waits at most
+      ``timeout`` (the comm's, else the call's) and then raises
+      :class:`CommTimeout` having taken nothing.  ``send`` consults the
+      active ``faults`` plan as ``ThreadComm.send`` does (drop, or deliver
+      late), so a seeded plan means the same thing in every process;
+    - ``gather``/``scatter`` on mailboxes of their own, apart from ``send``'s;
+      ``bcast``, ``barrier`` and ``vote_any`` on store rounds;
+    - ``dup(key)``: the same ranks on keys of their own, so a background
+      thread's collectives never interleave with the foreground's;
+    - a rank whose work raises under :func:`run_process_world` marks the
+      world failed (the launcher does the same when a process dies), and
+      every wait on a peer then ends in RuntimeError at its next poll, as
+      ``_ThreadWorld.failed`` ends ThreadComm's waits.
+
+    Unlike ``JaxComm``, whose jax transport has no point-to-point send and
+    no gather or scatter across processes, tree and flat finalize and the
+    streaming flush all run on it.  With one rank it behaves as
+    :class:`SoloComm`.
+    """
+
+    has_p2p = True
+
+    def __init__(self, timeout: float = _RECV_TIMEOUT_S):
+        import torch.distributed as dist
+
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError(
+                "TorchDistComm needs an initialised torch.distributed "
+                "default group (torchrun, or init_process_group)")
+        self._init(StoreByteTransport(
+            dist.distributed_c10d._get_default_store(), dist.get_rank(),
+            dist.get_world_size()), timeout)
+
+    @classmethod
+    def over_store(cls, store: Any, rank: int, size: int,
+                   timeout: float = _RECV_TIMEOUT_S) -> "TorchDistComm":
+        """Rank ``rank`` of ``size`` ranks that share ``store`` (a
+        ``torch.distributed`` ``Store``), with no process group."""
+        comm = cls.__new__(cls)
+        comm._init(StoreByteTransport(store, rank, size), timeout)
+        return comm
+
+    def _init(self, transport: StoreByteTransport, timeout: float) -> None:
+        self._t = transport
+        self.rank, self.size = transport.rank, transport.size
+        self.timeout = timeout
+        self._subs: Dict[str, "TorchDistComm"] = {}
+        self._subs_lock = threading.Lock()
+
+    def dup(self, key: str = "dup") -> "TorchDistComm":
+        with self._subs_lock:
+            sub = self._subs.get(key)
+            if sub is None:
+                sub = TorchDistComm.__new__(TorchDistComm)
+                sub._init(self._t.sub(f"dup:{key}"), self.timeout)
+                self._subs[key] = sub
+            return sub
+
+    def mark_failed(self, why: str) -> None:
+        """End every rank's waits with an error (a peer is gone)."""
+        self._t.mark_failed(why)
+
+    def send(self, obj: Any, dest: int) -> None:
+        from . import faults
+
+        blob = dumps(obj)
+        plan = faults.get_active()
+        if plan is not None:
+            act = plan.on_send(self.rank, dest)
+            if act == "drop":
+                return
+            if isinstance(act, float):
+                t = threading.Timer(act, self._t.put, args=("p2p", dest,
+                                                            blob))
+                t.daemon = True
+                t.start()
+                return
+        self._t.put("p2p", dest, blob)
+
+    def recv(self, source: int, timeout: Optional[float] = None) -> Any:
+        limit = self.timeout if timeout is None else timeout
+        try:
+            blob = self._t.take("p2p", source, limit)
+        except TimeoutError as e:
+            raise CommTimeout(str(e)) from None
+        return pickle.loads(blob)
+
+    def gather(self, obj, root=0):
+        if self.size == 1:
+            return [obj]
+        if self.rank != root:
+            self._t.put("coll", root, dumps(obj))
+            return None
+        return [obj if r == root
+                else pickle.loads(self._t.take("coll", r, None))
+                for r in range(self.size)]
+
+    def bcast(self, obj, root=0):
+        if self.size == 1:
+            return obj
+        blob = self._t.bcast(dumps(obj) if self.rank == root else None,
+                             root)
+        return obj if self.rank == root else pickle.loads(blob)
+
+    def scatter(self, objs, root=0):
+        if self.rank == root:
+            assert objs is not None and len(objs) == self.size
+            for r in range(self.size):
+                if r != root:
+                    self._t.put("coll", r, dumps(objs[r]))
+            return objs[root]
+        return pickle.loads(self._t.take("coll", root, None))
+
+    def barrier(self):
+        if self.size > 1:
+            self._t.barrier()
+
+    def vote_any(self, flag):
+        return global_any(flag, self._t)
+
+
+class WorldError(RuntimeError):
+    """A rank of :func:`run_process_world` failed, or the world ran past
+    its deadline.  ``errors`` maps each failed rank to its traceback (or
+    exit code); ``results`` holds what the other ranks returned."""
+
+    def __init__(self, msg: str, errors: Dict[int, str],
+                 results: Dict[int, Any]):
+        super().__init__(msg)
+        self.errors = errors
+        self.results = results
+
+
+
+def _world_rank(rank: int, size: int, store_path: str, fn: Callable,
+                args: Sequence, timeout: float, results: Any) -> None:
+    """One process of :func:`run_process_world`: open the file store, run
+    ``fn(comm, rank, *args)`` on a comm over it and report."""
+    import torch.distributed as dist
+
+    # the launcher holds the store too: the file goes when all size + 1
+    # have let it go, never under a rank that still polls it
+    comm = TorchDistComm.over_store(dist.FileStore(store_path, size + 1),
+                                    rank, size, timeout)
+    try:
+        results.put((rank, True, fn(comm, rank, *args)))
+    except BaseException:  # noqa: BLE001 - reported to the launcher
+        comm.mark_failed(f"rank {rank} raised")
+        results.put((rank, False, traceback.format_exc()))
+
+
+def run_process_world(size: int, fn: Callable[..., Any],
+                      args: Sequence = (), *, deadline_s: float = 600.0,
+                      timeout: float = _RECV_TIMEOUT_S,
+                      workdir: Optional[str] = None) -> List[Any]:
+    """Run ``fn(comm, rank, *args)`` on ``size`` processes (the ``spawn``
+    start method, so ``fn`` and ``args`` must pickle: ``fn`` a module-level
+    function), each over :meth:`TorchDistComm.over_store` of a
+    ``FileStore`` in ``workdir`` (a temporary directory by default), with
+    no process group; returns the
+    per-rank results.  A rank that raises or dies marks the world failed,
+    so its peers' waits end too, and the call raises :class:`WorldError`;
+    past ``deadline_s`` every process is killed and it raises as well.
+    The processes build no kernels: build them first
+    (``kernels._build.build_all``)."""
+    import multiprocessing as mp
+
+    import torch.distributed as dist
+
+    ctx = mp.get_context("spawn")
+    own = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="repro-world-")
+    os.makedirs(workdir, exist_ok=True)
+    store_path = os.path.join(workdir, "store")
+    if os.path.exists(store_path):
+        os.unlink(store_path)
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_world_rank, daemon=True,
+                         args=(r, size, store_path, fn, tuple(args), timeout,
+                               results))
+             for r in range(size)]
+    got: Dict[int, Any] = {}
+    errors: Dict[int, str] = {}
+    deadline = time.monotonic() + deadline_s
+    signalled = False
+    exited = set()
+    store = StoreByteTransport(dist.FileStore(store_path, size + 1), -1,
+                               size)
+
+    def signal(why: str) -> None:
+        nonlocal signalled
+        if not signalled:
+            store.mark_failed(why)
+        signalled = True
+
+    try:
+        for p in procs:
+            p.start()
+        while len(got) + len(errors) < size:
+            try:
+                rank, ok, val = results.get(timeout=0.05)
+            except queue.Empty:
+                # a process seen exited before the queue came up empty
+                # sent all it ever will: without a result it died, or its
+                # result did not pickle
+                for r, p in enumerate(procs):
+                    if r in got or r in errors or p.exitcode is None:
+                        continue
+                    if r in exited:
+                        errors[r] = f"exited with code {p.exitcode} and " \
+                                    f"no result"
+                        signal(f"rank {r} died")
+                    exited.add(r)
+                if time.monotonic() > deadline:
+                    for r in range(size):
+                        if r not in got and r not in errors:
+                            errors[r] = f"no result in {deadline_s:g} s"
+                    signal("deadline")
+                    break
+                continue
+            if ok:
+                got[rank] = val
+            else:
+                errors[rank] = val
+                signal(f"rank {rank} raised")
+    finally:
+        for p in procs:
+            p.join(timeout=max(0.0, min(10.0, deadline - time.monotonic())))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        results.close()
+        del store
+        if own:
+            shutil.rmtree(workdir, ignore_errors=True)
+    if errors:
+        first = min(errors)
+        raise WorldError(f"{len(errors)} of {size} ranks failed; rank "
+                         f"{first}: {errors[first]}", errors, got)
+    return [got[r] for r in range(size)]

@@ -361,13 +361,15 @@ def fit_classify(V: np.ndarray, backend: Optional[str] = None
     """Per-column (const_mask, linear_mask, first_diff) of a (C, R) int64
     value matrix with R >= 2 -- the vectorized core of the rank-linear
     fitter.  The ``torch``/``cuda`` paths run one ``fit_columns`` call over
-    the whole int64 matrix."""
+    the whole int64 matrix; on ``cuda`` the matrix goes to the card through
+    pinned memory and the packed result comes back in one copy."""
     if backend in ("torch", "cuda"):
-        flags, d0 = _de.fit_columns(_to_device(V.astype(np.int64,
-                                                        copy=False),
-                                               backend))
-        flags = flags.cpu().numpy()
-        return flags == 1, flags == 2, d0.cpu().numpy()
+        t = torch.from_numpy(np.ascontiguousarray(V, dtype=np.int64))
+        if backend == "cuda":
+            require_device(backend)
+            t = t.pin_memory().to("cuda", non_blocking=True)
+        flags, d0 = _de.fit_to_host(*_de.fit_columns(t))
+        return flags == 1, flags == 2, d0
     d = V[:, 1:] - V[:, :-1]
     const = (d == 0).all(axis=1)
     linear = (d == d[:, :1]).all(axis=1) & (d[:, 0] != 0)

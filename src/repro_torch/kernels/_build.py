@@ -111,9 +111,12 @@ def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
         return lib
 
 
-def check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:
+def check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int,
+          rows: bool = False) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of rank ``ndim``
-    on the CPU or a CUDA device."""
+    on the CPU or a CUDA device; with ``rows``, a matrix whose values lie
+    at stride 1 and whose rows may lie at any stride past their length (a
+    column slice)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what} must be a torch.Tensor, got {type(t)}")
     if t.dtype != dtype:
@@ -121,7 +124,11 @@ def check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:
     if t.dim() != ndim:
         raise ValueError(f"{what} must have {ndim} dimension(s), "
                          f"got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if rows and ndim == 2:
+        if t.stride(1) != 1 or (t.shape[0] > 1 and t.stride(0) < t.shape[1]):
+            raise ValueError(f"{what} must have its values at stride 1 and "
+                             f"its rows at a stride >= its row length")
+    elif not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} must lie on the CPU or a CUDA device, "

@@ -249,38 +249,203 @@ __global__ void __launch_bounds__(kThreads)
   if (tid < agg - tail) dst[tail + tid] = stage[tail + tid];
 }
 
-// (C, R) int64 matrix -> per row: flag 1 if every first-order delta is 0,
-// 2 if every delta equals a nonzero first delta, else 0; and the first
-// delta.  One warp per row; lanes stride over the deltas and two warp
-// votes reduce them.  Rows past C exit as whole warps.
-__global__ void fit_columns_kernel(const int64_t* __restrict__ V,
-                                   int32_t* __restrict__ flags,
-                                   int64_t* __restrict__ d0_out, int64_t c,
-                                   int64_t r) {
-  int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int lane = threadIdx.x & 31;
+// fit_columns: (C, R) int64 rows, the row stride ld >= R and the column
+// stride 1 -> one packed int64 buffer of C + ceil(C / 2) words: the first
+// deltas v[1] - v[0] in words [0, C), then, as int32, the flags (1 if
+// every first-order delta is 0, 2 if every delta equals a nonzero first
+// delta, else 0).  The wrapper copies the buffer back in one D2H copy.
+// All arithmetic is unsigned, so it wraps mod 2^64.
+//
+// Bound by bytes: 8 C R read, 12 C written.  A warp a row, lanes striding
+// over the ranks, would give (256, 16384) 32 blocks of 8 warps on a
+// 132-SM card, load each value twice, and idle at least 24 of a warp's
+// lanes at R <= 8.  Instead, two routes:
+//
+// rows  (R <= kFitRowsMax and at least kFitRowsMinWarps warps of rows an
+//       SM): a thread a row, walking it kFitChunk values at a time
+//       (16-byte loads where the row is 16-byte aligned, else 8-byte
+//       ones; a chunk's loads are in flight together).  A thread's few
+//       instructions a row keep many short rows fast, while a few rows
+//       would leave the card idle and wait a round trip a chunk.  (Staging
+//       a warp's 32 x 16 tile through shared memory with coalesced loads
+//       was slower on the H100: 152 registers, half the warps an SM.)
+// tiles (otherwise): a warp a (row, span of ranks), the span sized
+//       so the card holds about 32 warps an SM.  A lane holds two
+//       consecutive values (one 16-byte load where the row is aligned;
+//       else two 8-byte loads 32 values apart, each coalesced) and takes
+//       the delta to its left neighbour with __shfl_up_sync; lane 0's left
+//       neighbour is the previous step's last value, or the span's halo
+//       v[s0 - 1] from global memory.  A warp loads kFitUnroll steps of 64
+//       values before it uses them.  Every warp reads v[0] and v[1] of its
+//       row for d0.  Blocks run in no order, so a row split over several
+//       spans combines their verdicts: each span ORs "a delta != 0" (bit
+//       0) and "a delta != d0" (bit 1) into the row's word of a scratch
+//       buffer, then counts itself done there after a fence; the last
+//       span of the row turns the word into the flag and sets the word and
+//       the count back to 0.  The wrapper keeps one zeroed scratch a
+//       stream, which every launch leaves zeroed, so no launch has to
+//       clear it.  The span that holds rank 1 writes d0.
+constexpr int kFitRowsMax = 64;
+constexpr int kFitRowsMinWarps = 4;             // rows route: warps an SM
+constexpr int kFitRowsThreads = 128;
+constexpr int kFitChunk = 16;                   // values a rows thread loads
+constexpr int kFitStep = 64;                    // values a warp step covers
+constexpr int kFitUnroll = 4;                   // steps loaded at once
+constexpr int kFitQuantum = kFitStep * kFitUnroll;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int32_t fit_flag(bool zero, bool same,
+                                            uint64_t d0) {
+  return zero ? 1 : ((same && d0 != 0) ? 2 : 0);
+}
+
+__global__ void __launch_bounds__(kFitRowsThreads)
+    fit_columns_rows(const uint64_t* __restrict__ V,
+                     int64_t* __restrict__ packed, int64_t c, int r,
+                     int64_t ld) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= c) return;
-  const uint64_t* v = reinterpret_cast<const uint64_t*>(V) + row * r;
-  uint64_t d0 = v[1] - v[0];
+  const uint64_t* v = V + row * ld;
+  const bool vec = ((uintptr_t)v & 15) == 0;
+  uint64_t d0 = 0, prev = 0;
   bool zero = true, same = true;
-  for (int64_t j = 1 + lane; j < r; j += 32) {
-    uint64_t d = v[j] - v[j - 1];
-    zero &= d == 0;
-    same &= d == d0;
+  for (int j0 = 0; j0 < r; j0 += kFitChunk) {
+    uint64_t x[kFitChunk];
+#pragma unroll
+    for (int j = 0; j < kFitChunk; j += 2) {
+      const int i = j0 + j;
+      x[j] = x[j + 1] = 0;
+      if (vec && i + 1 < r) {
+        const ulonglong2 p = *reinterpret_cast<const ulonglong2*>(v + i);
+        x[j] = p.x;
+        x[j + 1] = p.y;
+      } else {
+        if (i < r) x[j] = v[i];
+        if (i + 1 < r) x[j + 1] = v[i + 1];
+      }
+    }
+    if (j0 == 0) d0 = x[1] - x[0];  // R >= 2
+#pragma unroll
+    for (int j = 0; j < kFitChunk; ++j) {
+      const int i = j0 + j;
+      if (i >= 1 && i < r) {
+        const uint64_t d = x[j] - (j ? x[j - 1] : prev);
+        zero &= d == 0;
+        same &= d == d0;
+      }
+    }
+    prev = x[kFitChunk - 1];
   }
-  zero = __all_sync(0xffffffffu, zero);
-  same = __all_sync(0xffffffffu, same);
-  if (lane == 0) {
-    flags[row] = zero ? 1 : ((same && d0 != 0) ? 2 : 0);
-    d0_out[row] = (int64_t)d0;
+  packed[row] = (int64_t)d0;
+  reinterpret_cast<int32_t*>(packed + c)[row] = fit_flag(zero, same, d0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fit_columns_tiles(const uint64_t* __restrict__ V,
+                      int64_t* __restrict__ packed,
+                      int32_t* __restrict__ scratch, int64_t c, int64_t r,
+                      int64_t ld, int64_t span, int64_t nspans) {
+  const int lane = threadIdx.x & 31;
+  const int64_t task = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (task >= c * nspans) return;  // whole warps
+  const int64_t row = nspans == 1 ? task : task / nspans;
+  const int64_t s = task - row * nspans;
+  const int64_t s0 = s * span, s1 = s0 + span < r ? s0 + span : r;
+  const uint64_t* v = V + row * ld;
+  const uint64_t d0 = v[1] - v[0];
+  uint64_t carry = s0 > 0 ? v[s0 - 1] : 0;
+  // spans start at multiples of kFitQuantum, so a lane's pair starts at an
+  // even index: aligned wherever the row is
+  const bool vec = ((uintptr_t)v & 15) == 0;
+  bool zero = true, same = true;
+  for (int64_t base = s0; base < s1; base += kFitQuantum) {
+    uint64_t lo[kFitUnroll], hi[kFitUnroll];
+#pragma unroll
+    for (int u = 0; u < kFitUnroll; ++u) {
+      const int64_t b = base + u * kFitStep;
+      lo[u] = hi[u] = 0;
+      if (vec) {
+        const int64_t a = b + 2 * lane;
+        if (a + 1 < s1) {
+          const ulonglong2 p = *reinterpret_cast<const ulonglong2*>(v + a);
+          lo[u] = p.x;
+          hi[u] = p.y;
+        } else if (a < s1) {
+          lo[u] = v[a];
+        }
+      } else {
+        if (b + lane < s1) lo[u] = v[b + lane];
+        if (b + 32 + lane < s1) hi[u] = v[b + 32 + lane];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFitUnroll; ++u) {
+      const int64_t b = base + u * kFitStep;
+      if (b >= s1) break;  // the same for every lane
+      uint64_t d[2];
+      bool ok[2];
+      if (vec) {
+        // lane l holds v[a], v[a + 1] with a = b + 2 l
+        const int64_t a = b + 2 * lane;
+        uint64_t prev = __shfl_up_sync(kFull, hi[u], 1);
+        if (lane == 0) prev = carry;
+        d[0] = lo[u] - prev;
+        ok[0] = a < s1 && a >= 1;
+        d[1] = hi[u] - lo[u];
+        ok[1] = a + 1 < s1;
+      } else {
+        // lane l holds v[b + l] and v[b + 32 + l]
+        uint64_t p0 = __shfl_up_sync(kFull, lo[u], 1);
+        uint64_t p1 = __shfl_up_sync(kFull, hi[u], 1);
+        const uint64_t last0 = __shfl_sync(kFull, lo[u], 31);
+        if (lane == 0) {
+          p0 = carry;
+          p1 = last0;
+        }
+        d[0] = lo[u] - p0;
+        ok[0] = b + lane < s1 && b + lane >= 1;
+        d[1] = hi[u] - p1;
+        ok[1] = b + 32 + lane < s1;
+      }
+      // the step's last value: lane 31's, valid wherever a next step is
+      carry = __shfl_sync(kFull, hi[u], 31);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (ok[k]) {
+          zero &= d[k] == 0;
+          same &= d[k] == d0;
+        }
+      }
+    }
+  }
+  zero = __all_sync(kFull, zero);
+  same = __all_sync(kFull, same);
+  if (lane != 0) return;
+  int32_t* flags = reinterpret_cast<int32_t*>(packed + c);
+  if (nspans == 1) {
+    packed[row] = (int64_t)d0;
+    flags[row] = fit_flag(zero, same, d0);
+    return;
+  }
+  if (s == 0) packed[row] = (int64_t)d0;  // the span that holds rank 1
+  int32_t* word = scratch + row;
+  int32_t* done = scratch + c + row;
+  const int bits = (zero ? 0 : 1) | (same ? 0 : 2);
+  if (bits) atomicOr(word, bits);
+  __threadfence();
+  if (atomicAdd(done, 1) == nspans - 1) {
+    __threadfence();
+    const int w = atomicOr(word, 0);
+    flags[row] = fit_flag(!(w & 1), !(w & 2), d0);
+    *word = 0;  // every span of the row is done: leave the scratch zeroed
+    *done = 0;
   }
 }
 
-// Blocks for a grid-stride kernel: enough for n4 groups, at most a few an
-// SM of the current device (its SM count read once: a host's cards are
-// one model; ranks on threads may race to read it, and store the same
-// count).  A failed query returns its error.
-cudaError_t grid_blocks(int64_t n4, unsigned* blocks) {
+// The SM count of the current device, read once (a host's cards are one
+// model; ranks on threads may race to read it, and store the same count).
+// A failed query returns its error.
+cudaError_t sm_count(int* out) {
   static std::atomic<int> sms_read{0};
   int sms = sms_read.load(std::memory_order_relaxed);
   if (sms == 0) {
@@ -292,6 +457,16 @@ cudaError_t grid_blocks(int64_t n4, unsigned* blocks) {
     if (err != cudaSuccess) return err;
     sms_read.store(sms, std::memory_order_relaxed);
   }
+  *out = sms;
+  return cudaSuccess;
+}
+
+// Blocks for a grid-stride kernel: enough for n4 groups, at most four an
+// SM.
+cudaError_t grid_blocks(int64_t n4, unsigned* blocks) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const int64_t want = (n4 + kThreads - 1) / kThreads;
   *blocks = (unsigned)(want < 4 * sms ? want : 4 * sms);
   return cudaSuccess;
@@ -348,12 +523,48 @@ int uvarint_pack64(const void* v, void* out, void* status, int64_t n_status,
   return (int)cudaGetLastError();
 }
 
-int fit_columns(const void* V, void* flags, void* d0, int64_t c, int64_t r,
-                void* stream) {
-  int64_t threads = c * 32;  // one warp per row
-  unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  fit_columns_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)V, (int32_t*)flags, (int64_t*)d0, c, r);
+// How fit_columns splits (C, R) on this device: plan[0] the route (0
+// rows, 1 tiles), plan[1] the ranks a rows thread loads at a time or a
+// tiles warp's span, plan[2] the spans a row (1 on the rows route).
+int fit_columns_plan(int64_t c, int64_t r, void* plan) {
+  int64_t* out = (int64_t*)plan;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  if (r <= kFitRowsMax && c >= (int64_t)kFitRowsMinWarps * 32 * sms) {
+    out[0] = 0;
+    out[1] = r < kFitChunk ? r : kFitChunk;
+    out[2] = 1;
+    return 0;
+  }
+  // spans of whole quanta, as many as give about 32 warps an SM
+  const int64_t per_warp = (c * r + 32 * (int64_t)sms - 1) / (32 * sms);
+  out[0] = 1;
+  out[1] = ((per_warp + kFitQuantum - 1) / kFitQuantum) * kFitQuantum;
+  out[2] = (r + out[1] - 1) / out[1];
+  return 0;
+}
+
+// packed: c + ceil(c / 2) int64 words (see above); scratch: 2 c int32,
+// zero on entry and on return; ld: V's row stride in values.
+int fit_columns(const void* V, void* packed, void* scratch, int64_t c,
+                int64_t r, int64_t ld, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  int64_t plan[3];
+  const int err = fit_columns_plan(c, r, plan);
+  if (err != 0) return err;
+  const uint64_t* v = (const uint64_t*)V;
+  int64_t* out = (int64_t*)packed;
+  if (plan[0] == 0) {
+    fit_columns_rows<<<(unsigned)((c + kFitRowsThreads - 1) /
+                                  kFitRowsThreads),
+                       kFitRowsThreads, 0, st>>>(v, out, c, (int)r, ld);
+    return (int)cudaGetLastError();
+  }
+  const int64_t warps = c * plan[2], per_block = kThreads / 32;
+  fit_columns_tiles<<<(unsigned)((warps + per_block - 1) / per_block),
+                      kThreads, 0, st>>>(v, out, (int32_t*)scratch, c, r,
+                                         ld, plan[1], plan[2]);
   return (int)cudaGetLastError();
 }
 

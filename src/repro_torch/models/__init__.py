@@ -45,7 +45,7 @@ class ModelAPI:
             if refused(cfg):
                 raise NotImplementedError(
                     f"{cfg.name}: {family} is not ported to repro_torch yet "
-                    f"(ROADMAP queue 1, item 7)")
+                    f"(ROADMAP queue 1, item 5)")
         self.cfg = cfg
         self.device = model_device(device)
 

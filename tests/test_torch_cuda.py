@@ -126,6 +126,117 @@ def test_fit_columns(dev, c, r, base):
     assert torch.equal(d0.cpu(), want_d0)
 
 
+def _fit_rows(c, r, base, seed):
+    """(C, R) int64 rows near ``base``: constant, rank-linear, irregular,
+    and rank-linear but for one rank, at a span edge (256 and 1,024 are
+    multiples of every span the tiled route takes), at the last rank or
+    at rank 1 (a wrong d0 only)."""
+    rng = np.random.RandomState(seed)
+    slope = rng.randint(1, 9, size=(c, 1)) * np.where(rng.rand(c, 1) < .5,
+                                                      -1, 1)
+    ranks = np.arange(r)[None, :]
+    V = np.where(np.arange(c)[:, None] % 4 == 0,
+                 rng.randint(-50, 50, size=(c, 1)) + 0 * ranks,
+                 slope * ranks + rng.randint(-99, 99, size=(c, 1)))
+    noise = rng.randint(-1000, 1000, size=(c, r))
+    V = np.where(np.arange(c)[:, None] % 4 == 2, noise, V)
+    for i in range(3, c, 4):
+        V[i, (256, 1024, r - 1, 1)[(i // 4) % 4] % r] += 7
+    return (V + base).astype(np.int64)
+
+
+def _route_edges(dev):
+    """(the least C, the most R) that ``fit_plan`` gives the rows route
+    on ``dev``: rows take (C, R) with C >= the first and R <= the
+    second."""
+    r_max = 2
+    while de.fit_plan(1 << 40, r_max + 1, dev)[0] == "rows":
+        r_max += 1
+    lo, hi = 1, 1 << 40          # fit_plan(lo, 2) tiles, (hi, 2) rows
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if de.fit_plan(mid, 2, dev)[0] == "rows" \
+            else (mid, hi)
+    return hi, r_max
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("base", [0, (1 << 62) - (1 << 20),
+                                  -(1 << 62) + (1 << 20)])
+@pytest.mark.parametrize("c,r", [
+    (c, r) for c in (1, 2, 257)
+    for r in (2, 3, 31, 32, 33, "edge", "edge+1", 255, 257, 511, 513, 4099,
+              16384)] + [
+    (65536, r) for r in (2, 3, 17, "edge", "edge+1")])
+def test_fit_columns_edges(dev, c, r, base, offset):
+    """Both routes (a thread a row where R is at most the rows route's
+    edge, ``fit_plan``'s, and C fills the card, else a warp a span of
+    ranks), rows split over spans at prime lengths and a span multiple
+    +- 1, values near +-2^62, and with ``offset`` rows that start off
+    16-byte alignment (a column slice): exact against the plain version,
+    one counted launch, one packed output."""
+    if isinstance(r, str):
+        r = _route_edges(dev)[1] + (r == "edge+1")
+    W = _fit_rows(c, r + offset, base, c * r + offset)
+    V = torch.from_numpy(W).to(dev)[:, offset:]
+    _build.reset_launches()
+    flags, d0 = de.fit_columns(V)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"fit_columns": 1}
+    want_flags, want_d0 = fit_columns_ref(torch.from_numpy(W[:, offset:]))
+    hf, hd = de.fit_to_host(flags, d0)
+    np.testing.assert_array_equal(hf, want_flags.numpy())
+    np.testing.assert_array_equal(hd, want_d0.numpy())
+    assert torch.equal(flags.cpu(), want_flags)
+    kinds = set(want_flags.tolist())
+    assert kinds == {0, 1, 2} or c < 4 or r < 3
+
+
+def test_fit_columns_scratch_stays_zeroed(dev):
+    """Rows split over spans combine in a scratch that every launch leaves
+    zeroed: repeated and interleaved calls (more rows, fewer rows, another
+    stream) give the plain version's flags each time."""
+    mats = [torch.from_numpy(_fit_rows(c, r, 0, c * r)).to(dev)
+            for c, r in ((257, 4099), (3, 16384), (257, 4099), (1, 5000))]
+    wants = [fit_columns_ref(V.cpu()) for V in mats]
+    side = torch.cuda.Stream(dev)
+    for rep in range(3):
+        for V, (want_flags, want_d0) in zip(mats, wants):
+            with torch.cuda.stream(side if rep == 1 else
+                                   torch.cuda.default_stream(dev)):
+                flags, d0 = de.fit_columns(V)
+                torch.cuda.current_stream(dev).synchronize()
+            assert torch.equal(flags.cpu(), want_flags)
+            assert torch.equal(d0.cpu(), want_d0)
+
+
+def test_fit_columns_route_boundary(dev):
+    """The rows route takes R up to its edge once C gives every SM whole
+    warps of rows (both edges from ``fit_plan``); a tiles split of a long
+    row spans whole quanta of 256 ranks, 32 warps an SM; both sides of
+    each edge are exact."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c_min, r_max = _route_edges(dev)
+    assert c_min % (32 * sms) == 0 and r_max >= 16
+    assert de.fit_plan(c_min, r_max, dev) == ("rows", 16, 1)
+    assert [de.fit_plan(c_min, r, dev)[1] for r in (2, 3, 16, 17)] == [
+        2, 3, 16, 16]
+    assert de.fit_plan(c_min, r_max + 1, dev)[0] == "tiles"
+    assert de.fit_plan(c_min - 1, 2, dev)[0] == "tiles"
+    assert de.fit_plan(6, 32, dev) == ("tiles", 256, 1)
+    route, span, nspans = de.fit_plan(256, 16384, dev)
+    assert route == "tiles" and span % 256 == 0 and nspans == -(-16384 //
+                                                                span)
+    assert 256 * nspans >= 16 * sms
+    for c, r in ((c_min - 1, 2), (c_min, 2), (c_min, r_max),
+                 (c_min, r_max + 1), (c_min + 31, 5)):
+        V = torch.from_numpy(_fit_rows(c, r, 1 << 40, c + r))
+        flags, d0 = de.fit_columns(V.to(dev))
+        want_flags, want_d0 = fit_columns_ref(V)
+        assert torch.equal(flags.cpu(), want_flags)
+        assert torch.equal(d0.cpu(), want_d0)
+
+
 @pytest.mark.parametrize("n,k", [(1, 1), (257, 1), (65535, 3)])
 def test_row_boundaries(dev, n, k):
     V = np.random.RandomState(n).randint(0, 2, size=(n, k)) + (1 << 40)

@@ -131,6 +131,30 @@ def test_fit_classify_matches_reference(backend, big):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("shape", [(1, 2), (6, 32), (60, 16)])
+def test_fit_classify_asks_the_wrapper_once(monkeypatch, shape):
+    """The ``torch`` fit makes one ``fit_columns`` call over the whole
+    matrix and brings both of its outputs back through ``fit_to_host``
+    once; the ``numpy`` fit calls neither."""
+    from repro_torch.kernels.delta_encode import ops as de
+    calls = []
+    for name in ("fit_columns", "fit_to_host"):
+        real = getattr(de, name)
+        monkeypatch.setattr(
+            de, name, lambda *a, _r=real, _n=name: (calls.append(_n),
+                                                    _r(*a))[1])
+    rng = np.random.RandomState(shape[0])
+    V = rng.randint(-3, 3, size=shape).astype(np.int64)
+    V[0] = 4 + 5 * np.arange(shape[1])
+    got = eb.fit_classify(V, "torch")
+    assert calls == ["fit_columns", "fit_to_host"]
+    for w, g in zip(ref_eb.fit_classify(V, "numpy"), got):
+        np.testing.assert_array_equal(g, w)
+    calls.clear()
+    eb.fit_classify(V, "numpy")
+    assert calls == []
+
+
 @pytest.mark.parametrize("backend", CPU_BACKENDS)
 @pytest.mark.parametrize("n_cols,n_ranks", [(1, 2), (40, 8), (300, 16)])
 def test_batch_fit_columns_matches_reference(backend, n_cols, n_ranks):

@@ -38,6 +38,8 @@ def test_port_sources_found():
     names = {os.path.relpath(p, _REPO) for p in _sources()}
     assert "chip_smoke.py" in names
     assert os.path.join("src", "repro_torch", "core", "recorder.py") in names
+    assert os.path.join("src", "repro_torch", "distributed",
+                        "sharding.py") in names
     assert len(names) > 20
 
 
@@ -57,7 +59,8 @@ def test_recorder_import_leaves_jax_unloaded():
             "repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.configs, repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.ssd_scan, "
-            "repro_torch.models.ssm; "
+            "repro_torch.models.ssm, repro_torch.distributed, "
+            "repro_torch.distributed.sharding, repro_torch.core.comm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(_REPO, "src"))

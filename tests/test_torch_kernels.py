@@ -160,6 +160,50 @@ def test_fit_columns_wide_values_match_reference(c, r):
     assert flags.numpy()[0] == 2
 
 
+@pytest.mark.parametrize("c,r", [(1, 2), (3, 17), (6, 32), (257, 5)])
+def test_fit_columns_splits_one_packed_output(c, r):
+    """flags and d0 are views of one packed int64 tensor of C + ceil(C/2)
+    words: d0 its first C words, the flags the C int32 after them, so
+    ``fit_to_host`` can bring both to the host in one copy."""
+    V = _to_t(_fit_matrix(c, r, seed=c + r))
+    flags, d0 = de.fit_columns(V)
+    assert flags.dtype == torch.int32 and d0.dtype == torch.int64
+    assert flags.shape == d0.shape == (c,)
+    assert d0.untyped_storage().data_ptr() == \
+        flags.untyped_storage().data_ptr()
+    assert flags.data_ptr() == d0.data_ptr() + 8 * c
+    assert d0._base.shape == (de.packed_words(c),)
+    packed = torch.empty(0, dtype=torch.int64).set_(
+        d0.untyped_storage(), 0, (de.packed_words(c),))
+    f2, d2 = de.split_fit(packed.clone(), c)
+    assert torch.equal(f2, flags) and torch.equal(d2, d0)
+    want_flags, want_d0 = fit_columns_ref(V.numpy())
+    np.testing.assert_array_equal(flags.numpy(), want_flags)
+    np.testing.assert_array_equal(d0.numpy(), want_d0)
+    hf, hd = de.fit_to_host(flags, d0)              # numpy, one copy
+    assert hf.dtype == np.int32 and hd.dtype == np.int64
+    np.testing.assert_array_equal(hf, want_flags)
+    np.testing.assert_array_equal(hd, want_d0)
+    with pytest.raises(ValueError):
+        de.fit_to_host(flags.clone(), d0)
+
+
+@pytest.mark.parametrize("c,r,offset", [(5, 7, 1), (33, 20, 3), (2, 2, 5)])
+def test_fit_columns_takes_a_column_slice(c, r, offset):
+    """Rows at a stride past their length (a column slice of a wider
+    matrix, its rows off 16-byte alignment) give the slice's fit; a
+    matrix whose values are not at stride 1 is refused."""
+    W = _fit_matrix(c, r + offset, big=True, seed=r)
+    V = _to_t(W)[:, offset:]
+    assert not V.is_contiguous() or c == 1
+    flags, d0 = de.fit_columns(V)
+    want_flags, want_d0 = fit_columns_ref(np.ascontiguousarray(W[:, offset:]))
+    np.testing.assert_array_equal(flags.numpy(), want_flags)
+    np.testing.assert_array_equal(d0.numpy(), want_d0)
+    with pytest.raises(ValueError):
+        de.fit_columns(_to_t(W)[:, ::2])
+
+
 @pytest.mark.parametrize("k", [1, 3])
 @pytest.mark.parametrize("n", LENGTHS)
 def test_row_boundaries_matches_pallas(n, k):

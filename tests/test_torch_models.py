@@ -358,7 +358,7 @@ def test_sliding_window_ring_cache_matches_jax():
 
 @pytest.mark.parametrize("arch", sorted(set(all_arch_names()) - set(ARCHS)))
 def test_other_families_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
         get_model(get_smoke_config(arch), "cpu")
 
 
