@@ -25,7 +25,11 @@ csrc`` and then runs, in order:
                 a prime length (Q 1, 2,053 chunks in groups) with its peak
                 memory held to the scratch budget; bf16 flash attention
                 and SSD scan run their tensor-core kernels, f32 their
-                CUDA-core ones;
+                CUDA-core ones; and each model kernel's autograd Function
+                (forward on the kernel, backward by recomputing the plain
+                version) against plain autograd: every input gradient
+                equal bit for bit, f32 and bf16, at prime lengths, hymba's
+                windowed attention and the train phase's shapes;
 3. IOR       -- the write path: 32 ranks x 16,384 lseek+write iterations
                 (paper Listing 3, 1 MiB transfers to one shared file) as
                 ThreadComm ranks, finalized tree and flat on the ``cuda``
@@ -81,7 +85,30 @@ csrc`` and then runs, in order:
                 ``"torch"``; then a mamba2 prefill of 4 prompts of 2,053
                 tokens (a prime: Q 1), kernel path against plain path, with
                 its peak memory;
-10. report   -- the kernels' launch counts from phases 3-6 and from the
+10. train    -- the training workload: mamba2-370m at its published
+                widths and depth (48 layers), bf16 compute with f32 master
+                weights and moments, block remat, 4 x 1,024 synthetic
+                tokens a step, inside a ``session`` on the ``cuda`` encode
+                backend: step 1's gradient of every parameter leaf finite
+                and non-zero on the kernel path and its loss within bf16
+                2e-2 of the plain path's; a ``Trainer`` takes 4 steps and
+                checkpoints (about 5 GB, keep 1), a new one auto-resumes
+                with a bit-identical state and takes 2 more; ``ssd_scan``
+                and ``rmsnorm`` counted step by step (48 each a forward,
+                twice that under block remat), the finalize's
+                ``delta_zigzag`` and ``uvarint_pack64``, and the trace
+                read back (6 ``step`` records, the checkpoint's
+                ``shard_write_at`` and ``shard_read_at`` calls); one
+                profiled step; every leaf's f32 gradient within relative
+                L2 1e-3 of the plain path's at full width and 4 layers
+                (2e-2 at 48, where f32 rounding alone moves some leaves
+                by 7e-3); then
+                qwen1.5-0.5b (all 24 layers, bf16) for flash attention's
+                gradient: the same guard and loss check and 2 steps.  It
+                prints step time, tokens/s, device busy and idle share,
+                peak memory, checkpoint seconds and bytes and the trace's
+                records and bytes beside the card's name and power limit;
+11. report   -- the kernels' launch counts from phases 3-6 and from the
                 serve runs (each must be above 0, but 0 for the direct
                 counterparts that the main path no longer launches:
                 ``uvarint_encode64``, ``row_boundaries``, ``digram_codes``)
@@ -104,6 +131,7 @@ CUDA card, or without the rest of the repository beside it, it fails.
 from __future__ import annotations
 
 import collections
+import functools
 import hashlib
 import json
 import os
@@ -581,7 +609,134 @@ def model_kernels(k, ssm_calls: dict) -> dict:
             log(f"rmsnorm at the SSM serve gate-norm shape {shape} {dtype}: "
                 f"max abs error {err:.3g}")
     torch.cuda.empty_cache()
+    function_grad_checks(k)
+    torch.cuda.empty_cache()
     return ssd_kernel_checks(k)
+
+
+# the autograd Functions' shapes: (B, S, H, KVH, D, causal, window) of
+# flash attention, rows of RMSNorm, (B, nc, Q, nh, hd, ns) of the SSD scan:
+# prime lengths, lengths off the kernels' 64- and 128-row tiles, hymba's
+# windowed attention at a prime length past its window, and the shapes the
+# train phase gives them (qwen1.5-0.5b's attention, mamba2-370m's gate
+# norm and SSD at 4 x 1,024 tokens)
+GRAD_FLASH = ((2, 37, 8, 2, 64, True, 0), (1, 257, 4, 4, 128, False, 0),
+              (1, 2053, 25, 5, 64, True, 1024),
+              (4, 1024, 16, 16, 64, True, 0))
+GRAD_NORM = ((37, 64), (3, 13, 128), (4, 1024, 32, 64))
+GRAD_SSD = ((2, 3, 37, 4, 64, 128), (1, 7, 1, 3, 16, 16),
+            (4, 4, 256, 32, 64, 128))
+# da scaled so that exp(cs_q - cs_p) above the diagonal overflows, as
+# mamba2's decays do within a 256-token chunk: the gradients stay finite.
+# cs then reaches -1,121 in a chunk, and cs_q - cs_p loses f32 digits in
+# both versions: against the f64 plain version the f32 kernel's y is off
+# by 3.10e-4 and the plain version's by 1.94e-4, the state by 4.18e-5 and
+# 1.58e-5 (on an H100, PERF.md), so the two differ beyond FLOAT_TOL with
+# neither at fault.  Here each output of the kernel is held to
+# SSD_EXACT_RATIO times the plain version's own max abs error against the
+# f64 plain version (readings 1.0-2.7).
+GRAD_SSD_STRONG_DECAY = 16
+SSD_EXACT_RATIO = 4
+
+
+def function_grad_checks(k) -> None:
+    """Each model kernel's autograd Function (forward on the kernel,
+    backward by recomputing the plain version) against plain autograd
+    through the plain version, on the card, f32 and bf16.  The forward
+    outputs are the kernel's: each must lie within FLOAT_TOL of the plain
+    version's (SSD_TOL_SCALE times that for the SSD scan, as in
+    ``ssd_check``), which holds the bf16 tensor-core kernels that a
+    training step launches at its own shapes; the SSD scan with
+    GRAD_SSD_STRONG_DECAY against the f64 plain version (see there).  The
+    input gradients must be equal bit for bit, since the backward IS the
+    plain recompute; the SSD scan also with an upstream gradient on its
+    final state."""
+    def grads(fn, inputs, kwargs, used):
+        xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = fn(*xs, **kwargs)
+        outs = out if isinstance(out, tuple) else (out,)
+        gos = [randn(tuple(outs[i].shape), 90 + i, outs[i].dtype)
+               for i in used]
+        return ([o.detach() for o in outs],
+                torch.autograd.grad([outs[i] for i in used], xs, gos))
+
+    worst = collections.defaultdict(float)
+
+    def against_exact(outs, want_outs, inputs, plain, what):
+        """Each output's max abs error against ``plain`` in f64, the
+        kernel's within SSD_EXACT_RATIO times the plain version's."""
+        with torch.no_grad():
+            exact = plain(*(t.double() for t in inputs))
+        for i, (o, w, e) in enumerate(zip(outs, want_outs, exact)):
+            ek, ep = (float((t.double() - e).abs().max()) for t in (o, w))
+            require(ek <= SSD_EXACT_RATIO * ep,
+                    f"{what}: output {i} of the Function off the f64 plain "
+                    f"version by {ek:.3g}, the f32 plain version by {ep:.3g}")
+            log(f"{what}: output {i} against the f64 plain version: kernel "
+                f"{ek:.3g}, plain {ep:.3g} (max abs error)")
+
+    def check(kernel, plain, inputs, kwargs, what, used=(0,), scale=1,
+              exact=False):
+        outs, got = grads(functools.partial(k.grad.apply, kernel, plain),
+                          inputs, kwargs, used)
+        want_outs, want = grads(plain, inputs, kwargs, used)
+        if exact:
+            against_exact(outs, want_outs, inputs, plain, what)
+        else:
+            for i, (o, w) in enumerate(zip(outs, want_outs)):
+                err = close_err(o, w, f"{what}: output {i} of the Function",
+                                scale)
+                key = (what.split()[0], str(inputs[0].dtype)[6:])
+                worst[key] = max(worst[key], err)
+        for i, (a, b) in enumerate(zip(got, want)):
+            require(a.dtype == b.dtype and bool(torch.isfinite(a).all())
+                    and torch.equal(a, b),
+                    f"{what}: gradient of input {i} through the Function "
+                    f"!= plain autograd")
+
+    ssd = functools.partial(k.ssd.ssd_scan, return_state=True)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, KVH, D, causal, window in GRAD_FLASH:
+            qkv = (randn((B, S, H, D), S, dtype),
+                   randn((B, S, KVH, D), S + 1, dtype),
+                   randn((B, S, KVH, D), S + 2, dtype))
+            check(k.fa.flash_attention, k.fa_ref.flash_attention_ref, qkv,
+                  {"causal": causal, "window": window},
+                  f"flash_attention {(B, S, H, KVH, D)} causal={causal} "
+                  f"window={window} {dtype}")
+            n += 1
+        for shape in GRAD_NORM:
+            w = torch.rand(shape[-1], generator=torch.Generator(
+                device="cuda").manual_seed(3), device="cuda") + 0.5
+            check(k.rn.rmsnorm, k.rn_ref.rmsnorm_ref,
+                  (randn(shape, 7, dtype), w), {"eps": 1e-5},
+                  f"rmsnorm {shape} {dtype}")
+            n += 1
+        for shape in GRAD_SSD:
+            args = ssd_inputs(*shape, dtype, 61)
+            for used in ((0,), (0, 1)):
+                check(ssd, k.ssd_ref.ssd_scan_chunked_ref, args, {},
+                      f"ssd_scan {shape} {dtype} outputs {used}", used,
+                      SSD_TOL_SCALE)
+                n += 1
+        *xbc, dt, da = ssd_inputs(*GRAD_SSD[-1], dtype, 62)
+        check(ssd, k.ssd_ref.ssd_scan_chunked_ref,
+              (*xbc, dt, da * GRAD_SSD_STRONG_DECAY), {},
+              f"ssd_scan {GRAD_SSD[-1]} {dtype}, decay overflowing above "
+              f"the diagonal", exact=True)
+        n += 1
+        torch.cuda.empty_cache()
+    log(f"autograd Functions on the card: {n} cases (flash attention "
+        f"{GRAD_FLASH}, RMSNorm rows {GRAD_NORM}, SSD scan {GRAD_SSD} with "
+        f"and without a state gradient and with da x "
+        f"{GRAD_SSD_STRONG_DECAY}; f32 and bf16): every forward output "
+        f"within tolerance of the plain version's, the strong decay's "
+        f"against the f64 plain version (max abs error "
+        + ", ".join(f"{name} {dt} {e:.3g}" for (name, dt), e in
+                    sorted(worst.items()))
+        + "), every input gradient finite and equal to plain autograd's, "
+        "bit for bit")
 
 
 def ssd_inputs(B, nc, Q, nh, hd, ns, dtype, seed):
@@ -850,7 +1005,7 @@ def mp_rank(comm, rank: int, root: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.recorder import Recorder, RecorderConfig
     from repro_torch.core.specs import REGISTRY
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, _grad
     from repro_torch.kernels.delta_encode import ops as de
 
     # the CUDA context, the finalize's kernels and rank 0's profiler start,
@@ -1472,6 +1627,379 @@ def prime_prefill(s, spec: ServeSpec) -> dict:
         f"the weights); launches {launches}")
     del params, lg_kernel, lg_plain
     torch.cuda.empty_cache()
+    return res
+
+
+# the train phase: mamba2-370m at its published widths and depth (48
+# layers), bf16 compute with f32 master weights and moments, block remat,
+# weights from a CUDA generator seeded 0, TRAIN_BATCH x TRAIN_SEQ tokens of
+# ``synthetic_batch`` (seed 0) a step; then qwen1.5-0.5b the same way for
+# flash attention's gradient (all 24 layers)
+TRAIN_ARCH, DENSE_TRAIN_ARCH = "mamba2-370m", "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_STEPS, RESUME_STEPS, DENSE_STEPS = 4, 2, 2
+TRAIN_OCFG = dict(lr=1e-3, warmup_steps=2,
+                  total_steps=TRAIN_STEPS + RESUME_STEPS)
+TRAIN_PLAIN = {"attn_impl": "torch", "ssm_impl": "torch"}
+# step 1's loss, kernel path against plain path (relative), set from
+# readings: 8.15e-6 (mamba2-370m) and 1.23e-5 (qwen1.5-0.5b) on an H100
+# 80GB HBM3 at 700 W (PERF.md), so about 100 times the readings and 20
+# times under the kernels' bf16 tolerance.  At random init the final norm
+# and the head set the logits' scale, so the loss moves little whatever a
+# kernel returns: a wrong kernel is caught by its forward check at the
+# train shapes (``function_grad_checks``), not here.
+TRAIN_LOSS_RTOL = 1e-3
+# every leaf's gradient in f32, kernel path against plain path (relative
+# L2): the SSM/hybrid serve runs' f32 bound (SERVE_SPECS), at
+# F32_GRAD_LAYERS of the 48 layers.  Deeper, the random layers amplify f32
+# rounding past it on their own: ``f32_grad_check`` also measures the
+# plain path against itself with the weights perturbed by a relative
+# 1e-7, which at 48 layers moves some leaves' gradients by more than 5e-3
+# on an H100 (PERF.md).  At full depth each leaf is held to
+# F32_GRAD_FULL_RTOL, above that floor; a cut or wrong gradient is off by
+# O(1) at any depth.
+GRAD_F32_RTOL, F32_GRAD_LAYERS = 1e-3, 4
+F32_GRAD_FULL_RTOL = 2e-2
+
+
+def train_launches(cfg, passes: int) -> dict:
+    """Model-kernel launches of ``passes`` forward and backward passes:
+    each forward launches what a prefill does (``serve_launches``); block
+    remat runs every block's forward again in the backward, and the
+    backward recomputes the plain versions, which launch nothing."""
+    remat = 2 if cfg.remat == "block" else 1
+    return {k: v * passes * remat
+            for k, v in serve_launches(cfg, 1).items()}
+
+
+def train_data(s, cfg):
+    dcfg = s.SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                             batch_size=TRAIN_BATCH, seed=0)
+    return lambda step: s.synthetic_batch(dcfg, step)
+
+
+def loss_and_grads(s, cfg, params, batch) -> tuple:
+    """(loss, {name: gradient}) of one forward and backward."""
+    flat = s.flat_params(params)
+    dev = next(iter(flat.values())).device
+    loss, _ = s.get_model(cfg, dev).loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    torch.cuda.synchronize()
+    return loss.detach(), dict(zip(flat, grads))
+
+
+def kernel_path_grads(s, cfg, state, batch) -> dict:
+    """One forward and backward of ``cfg`` on the kernel path from the
+    compute params of ``state``: every parameter leaf's gradient must be
+    finite and non-zero (a graph cut at a kernel leaves A_log, dt_bias and
+    gate_norm, or wq, wk and wv, with none), the model kernels must launch
+    as ``train_launches`` says, and the plain path's loss on the same
+    params and batch must lie within TRAIN_LOSS_RTOL."""
+    params = s.cast_params(state["master"], getattr(torch, cfg.param_dtype))
+    s.build.reset_launches()
+    loss, grads = loss_and_grads(s, cfg, params, batch)
+    launches = s.build.launch_counts()
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())
+           or not bool(g.abs().max() > 0)]
+    require(not bad, f"train {cfg.name}: {len(bad)} of {len(grads)} leaves "
+            f"have a zero or non-finite gradient on the kernel path: "
+            f"{bad[:8]}")
+    for name, n in train_launches(cfg, 1).items():
+        require(launches.get(name, 0) == n,
+                f"train {cfg.name}: a forward and backward launched {name} "
+                f"{launches.get(name, 0)} times, want {n}")
+    with torch.no_grad():
+        plain, _ = s.get_model(cfg.replace(**TRAIN_PLAIN),
+                               params["embed"].device).loss_fn(params, batch)
+    loss, plain = float(loss), float(plain)
+    rel = abs(loss - plain) / abs(plain)
+    require(np.isfinite(loss) and rel <= TRAIN_LOSS_RTOL,
+            f"train {cfg.name}: step 1 loss {loss} on the kernel path, "
+            f"{plain} on the plain path (relative {rel:.3g}, limit "
+            f"{TRAIN_LOSS_RTOL})")
+    log(f"train {cfg.name}: step 1 on the kernel path, all {len(grads)} "
+        f"parameter leaves have finite non-zero gradients; loss {loss:.6f} "
+        f"against the plain path's {plain:.6f} (relative {rel:.3g}, limit "
+        f"{TRAIN_LOSS_RTOL}); launches of one forward and backward "
+        f"{launches}")
+    return {"loss": loss, "plain_loss": plain, "loss_rel_err": rel,
+            "leaves": len(grads), "launches": launches}
+
+
+def backward_ms(k, kernel, plain, inputs) -> float:
+    """CUDA-event ms of one backward through a kernel's autograd Function
+    (the plain recompute and its gradients), the forward taken once."""
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = k.grad.apply(kernel, plain, *xs)
+    y = out[0] if isinstance(out, tuple) else out
+    go = torch.ones_like(y)
+    return cuda_ms(lambda: torch.autograd.grad(y, xs, go,
+                                               retain_graph=True),
+                   iters=5, warmup=1)
+
+
+def trace_summary(s, tdir: str) -> dict:
+    reader = s.TraceReader(tdir)
+    recs = list(reader.iter_records(0))
+    funcs = collections.Counter(r.func for r in recs)
+    steps = [r.arg("step_idx") for r in recs if r.func == "step"]
+    ck = {r.func: r for r in recs if r.func in ("ckpt_begin", "ckpt_end")}
+    nbytes = sum(os.path.getsize(os.path.join(root, f))
+                 for root, _d, files in os.walk(tdir) for f in files)
+    return {"records": len(recs), "by_function": dict(funcs),
+            "steps": steps, "trace_bytes": nbytes,
+            # ticks are microseconds (the trace's tick_unit)
+            "ckpt_traced_s": (ck["ckpt_end"].t_entry
+                              - ck["ckpt_begin"].t_exit) / 1e6}
+
+
+def phase_train(s) -> dict:
+    """mamba2-370m trains on the kernel path inside a ``session``: step 1's
+    gradients and loss checked (``kernel_path_grads``); a ``Trainer`` takes
+    TRAIN_STEPS steps and checkpoints (keep 1); a new ``Trainer``
+    auto-resumes, its state bit-identical, and takes RESUME_STEPS more --
+    launch counts set to 0 just before the two runs and read just after,
+    and counted step by step.  Then one profiled step, the f32 gradient
+    check at the same width (F32_GRAD_LAYERS layers, and all 48), and
+    qwen1.5-0.5b's flash-attention gradients and DENSE_STEPS steps."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    cfg = s.get_config(TRAIN_ARCH)
+    require(cfg.attn_impl == "cuda" and cfg.ssm_impl == "cuda"
+            and cfg.remat == "block", "the kernel paths and block remat "
+            "must be the defaults")
+    root = os.path.join(WORK, "train")
+    ckpt, tdir = os.path.join(root, "ckpt"), os.path.join(root, "trace")
+    shutil.rmtree(root, ignore_errors=True)
+    data = train_data(s, cfg)
+    ocfg = s.AdamWConfig(**TRAIN_OCFG)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = s.adamw_init(s.get_model(cfg, dev).init_params(gen))
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "state_bytes": s.state_nbytes(state),
+           "step1": kernel_path_grads(s, cfg, state, data(0))}
+    del state
+    torch.cuda.empty_cache()
+
+    marks = []
+
+    def mark(step):
+        marks.append((step, s.build.launch_counts()))
+
+    def trainer(n):
+        return s.Trainer(cfg, s.TrainerConfig(
+            num_steps=n, ckpt_dir=ckpt, ckpt_every=TRAIN_STEPS, keep=1,
+            seed=0), ocfg, data=data, fault_hook=mark, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    s.build.reset_launches()
+    with s.session(s.RecorderConfig(trace_dir=tdir, encode_backend=BACKEND)):
+        first = trainer(TRAIN_STEPS)
+        first.run()
+        mark(None)
+        second = trainer(TRAIN_STEPS + RESUME_STEPS)
+        t = time.monotonic()
+        second.init_state()
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t
+        require(second.start_step == TRAIN_STEPS,
+                f"train: resumed at step {second.start_step}")
+        a, b = (list(s.flat_params(tr.state).values())
+                for tr in (first, second))
+        require(len(a) == len(b) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b)),
+            "train: the restored state differs from the saved one")
+        first.state = None
+        second.run()
+        mark(None)
+    torch.cuda.synchronize()
+    launches = s.build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = [{k: v - m0.get(k, 0) for k, v in m1.items()
+                 if k in MODEL_KERNELS}
+                for (st, m0), (_, m1) in zip(marks, marks[1:])
+                if st is not None]
+    want = {k: v for k, v in train_launches(cfg, 1).items() if v}
+    require(len(per_step) == TRAIN_STEPS + RESUME_STEPS
+            and all(p == want for p in per_step),
+            f"train: model-kernel launches per step {per_step}, want {want}")
+    for name in ("delta_zigzag", "uvarint_pack64"):
+        require(launches.get(name, 0) > 0,
+                f"train: the trace's finalize launched no {name}")
+    log_ = first.metrics_log + second.metrics_log
+    losses = [m["loss"] for m in log_]
+    require(all(np.isfinite(losses)), f"train: losses {losses}")
+    require(abs(losses[0] - res["step1"]["plain_loss"])
+            <= TRAIN_LOSS_RTOL * abs(res["step1"]["plain_loss"]),
+            f"train: the Trainer's step 1 loss {losses[0]} against the "
+            f"plain path's {res['step1']['plain_loss']}")
+    manifest = os.path.join(ckpt, f"step_{TRAIN_STEPS:08d}", "manifest.json")
+    with open(manifest) as f:
+        manifest = json.load(f)
+    ckpt_bytes, n_arrays = manifest["total_bytes"], len(manifest["arrays"])
+    require(ckpt_bytes == res["state_bytes"],
+            f"train: checkpoint of {ckpt_bytes} B, state {res['state_bytes']}")
+    trace = trace_summary(s, tdir)
+    require(trace["steps"] == list(range(TRAIN_STEPS + RESUME_STEPS)),
+            f"train trace: step records {trace['steps']}")
+    # the save writes every array of the stacked layout and the manifest,
+    # the resume reads them back
+    for fn in ("shard_write_at", "shard_read_at"):
+        require(trace["by_function"].get(fn) == n_arrays + 1,
+                f"train trace: {trace['by_function'].get(fn)} {fn} "
+                f"records, want {n_arrays + 1} (every array of the "
+                f"checkpoint and its manifest)")
+    step_s = [m["step_time_s"] for m in log_]
+
+    batch = data(TRAIN_STEPS + RESUME_STEPS)
+    step_fn = s.make_train_step(cfg, ocfg, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        second.state, _ = step_fn(second.state, batch)
+        torch.cuda.synchronize()
+        prof_s = time.monotonic() - t
+    busy = device_busy_ms(prof)
+    top = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    del first, second
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res.update({
+        "losses": losses, "step_s": step_s,
+        "tokens_per_s": [tokens / x for x in step_s],
+        "launches": launches, "launches_per_step": want,
+        "peak_bytes": peak, "ckpt_bytes": ckpt_bytes,
+        "ckpt_save_traced_s": trace["ckpt_traced_s"],
+        "ckpt_restore_s": restore_s, "trace": trace,
+        "profiled_step_s": prof_s, "busy_ms": busy,
+        "idle_share": 1 - busy / (prof_s * 1e3),
+        "top_kernels": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                        for e in top]})
+    log(f"train {cfg.name} x {cfg.n_layers}, {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens: losses {[round(x, 5) for x in losses]}; step s "
+        f"{[round(x, 4) for x in step_s]}; launches per step {want}; "
+        f"after the traced runs {launches}")
+    log(f"train {cfg.name} resume: restored state bit-identical; restore "
+        f"(init_state) {restore_s:.3f} s, save (ckpt_begin to ckpt_end in "
+        f"the trace) {trace['ckpt_traced_s']:.3f} s, {ckpt_bytes} B")
+    log(f"train {cfg.name} profiled step: {prof_s * 1e3:.2f} ms, device busy "
+        f"{busy:.2f} ms (idle share {res['idle_share']:.4f}); top: "
+        + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in
+                    res["top_kernels"]))
+
+    res["f32_grads"] = [f32_grad_check(s, cfg, n, rtol, data(0)) for n, rtol
+                        in ((F32_GRAD_LAYERS, GRAD_F32_RTOL),
+                            (cfg.n_layers, F32_GRAD_FULL_RTOL))]
+
+    # what a step spends in the plain recomputes that stand in for the
+    # kernels' backward: one backward per layer at the step's shapes
+    ssd_shape = (TRAIN_BATCH, TRAIN_SEQ // cfg.ssm_chunk, cfg.ssm_chunk,
+                 cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+    res["ssd_backward_ms"] = backward_ms(
+        s.k, functools.partial(s.k.ssd.ssd_scan, return_state=True),
+        s.k.ssd_ref.ssd_scan_chunked_ref,
+        ssd_inputs(*ssd_shape, torch.bfloat16, 71))
+    res["dense"] = dense_train(s)
+    res["flash_backward_ms"] = backward_ms(
+        s.k, s.k.fa.flash_attention, s.k.fa_ref.flash_attention_ref,
+        res["dense"].pop("qkv"))
+    log(f"train: backward by plain recompute, bf16, per layer call: "
+        f"ssd_scan {ssd_shape} {res['ssd_backward_ms']:.3f} ms (x "
+        f"{cfg.n_layers} a step), flash_attention at qwen1.5-0.5b's shape "
+        f"{res['flash_backward_ms']:.3f} ms (x "
+        f"{res['dense']['layers']} a step)")
+    log(f"train numbers on {s.smi}: " + json.dumps(
+        {k: v for k, v in res.items() if k not in ("top_kernels",)}))
+    return res
+
+
+def f32_grad_check(s, cfg, layers: int, rtol: float, batch) -> dict:
+    """``cfg`` cut to ``layers`` layers in f32: every leaf's gradient on
+    the kernel path within relative L2 ``rtol`` of the plain path's and
+    non-zero; the plain path's own spread under a relative 1e-7
+    perturbation of the weights is measured beside it."""
+    dev = torch.device("cuda")
+    c32 = cfg.replace(n_layers=layers, dtype="float32",
+                      param_dtype="float32")
+
+    def params(noise: float):
+        p = s.get_model(c32, dev).init_params(
+            torch.Generator(device=dev).manual_seed(0))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        return s.cast_params(s.tree_map(lambda x, _: x * (1 + noise * (
+            torch.randn(x.shape, generator=gen, device=dev))), p),
+            torch.float32)
+
+    def rel(a, b):
+        return {n: float((a[n] - b[n]).norm() / b[n].norm()) for n in b}
+    p32 = params(0.0)
+    _, gk = loss_and_grads(s, c32, p32, batch)
+    _, gp = loss_and_grads(s, c32.replace(**TRAIN_PLAIN), p32, batch)
+    err = rel(gk, gp)
+    worst = max(err, key=err.get)
+    require(err[worst] <= rtol and all(bool(g.abs().max() > 0)
+                                       for g in gk.values()),
+            f"train {cfg.name} f32 x {layers}: gradient of {worst} differs "
+            f"by {err[worst]:.3g} (relative L2, limit {rtol})")
+    del gk, p32
+    _, gq = loss_and_grads(s, c32.replace(**TRAIN_PLAIN), params(1e-7),
+                           batch)
+    floor = rel(gq, gp)
+    res = {"layers": layers, "limit": rtol, "leaves": len(err),
+           "worst_leaf": worst, "worst": err[worst],
+           "median": float(np.median(list(err.values()))),
+           "plain_perturbed_worst": max(floor.values()),
+           "plain_perturbed_median": float(np.median(list(floor.values())))}
+    log(f"train {cfg.name} f32 x {layers} layers: every one of {len(err)} "
+        f"leaves' gradients on the kernel path within relative L2 "
+        f"{err[worst]:.3g} ({worst}; median {res['median']:.3g}) of the "
+        f"plain path's, limit {rtol}; the plain path against itself with "
+        f"the weights perturbed by 1e-7: worst "
+        f"{res['plain_perturbed_worst']:.3g}, median "
+        f"{res['plain_perturbed_median']:.3g}")
+    del gp, gq
+    torch.cuda.empty_cache()
+    return res
+
+
+def dense_train(s) -> dict:
+    """qwen1.5-0.5b at full width and depth, bf16: step 1's gradients and
+    loss on the kernel path (flash attention's Function), then DENSE_STEPS
+    steps of ``make_train_step``, launches counted."""
+    dev = torch.device("cuda")
+    cfg = s.get_config(DENSE_TRAIN_ARCH)
+    data = train_data(s, cfg)
+    state = s.adamw_init(s.get_model(cfg, dev).init_params(
+        torch.Generator(device=dev).manual_seed(0)))
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "step1": kernel_path_grads(s, cfg, state, data(0))}
+    step = s.make_train_step(cfg, s.AdamWConfig(**TRAIN_OCFG), device=dev)
+    s.build.reset_launches()
+    losses, step_s = [], []
+    for i in range(DENSE_STEPS):
+        t = time.monotonic()
+        state, m = step(state, data(i))
+        losses.append(float(m["loss"]))
+        step_s.append(time.monotonic() - t)
+    launches = s.build.launch_counts()
+    want = {k: v for k, v in train_launches(cfg, DENSE_STEPS).items() if v}
+    require({k: launches.get(k, 0) for k in want} == want,
+            f"train {cfg.name}: launches {launches}, want {want}")
+    require(all(np.isfinite(losses)) and abs(
+        losses[0] - res["step1"]["plain_loss"]) <= TRAIN_LOSS_RTOL * abs(
+        res["step1"]["plain_loss"]), f"train {cfg.name}: losses {losses}")
+    res.update({"losses": losses, "step_s": step_s, "launches": launches,
+                "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / x
+                                 for x in step_s]})
+    log(f"train {cfg.name} x {cfg.n_layers}, bf16: {DENSE_STEPS} steps, "
+        f"losses {losses}, step s {step_s}, launches {launches}")
+    del state
+    torch.cuda.empty_cache()
+    res["qkv"] = tuple(randn((TRAIN_BATCH, TRAIN_SEQ, h, cfg.hd), 80 + i,
+                             torch.bfloat16)
+                       for i, h in enumerate((cfg.n_heads, cfg.n_kv_heads,
+                                              cfg.n_kv_heads)))
     return res
 
 
@@ -2166,7 +2694,7 @@ def main() -> int:
     from repro_torch.core.reader import TraceReader
     from repro_torch.core.sequitur import Sequitur, expand_grammar
     from repro_torch.core.specs import REGISTRY
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, _grad
     from repro_torch.kernels.delta_encode import ops as de_ops
     from repro_torch.kernels.delta_encode import ref as de_ref
     from repro_torch.kernels.grammar_stats import ops as gs_ops
@@ -2182,10 +2710,16 @@ def main() -> int:
     from repro_torch.models import get_model
     from repro_torch.models.convert import flat_params
     from repro_torch.serve import ServeEngine
+    from repro_torch.data import SyntheticConfig, synthetic_batch
+    from repro_torch.launch.steps import cast_params, make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.models.convert import tree_map
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.loop import state_nbytes
 
     k = SimpleNamespace(de=de_ops, de_ref=de_ref, gs=gs_ops, gs_ref=gs_ref,
                         fa=fa_ops, fa_ref=fa_ref, rn=rn_ops, rn_ref=rn_ref,
-                        ssd=ssd_ops, ssd_ref=ssd_ref)
+                        ssd=ssd_ops, ssd_ref=ssd_ref, grad=_grad)
     # the tracer's kernels; uvarint_encode64 (lens and byte planes),
     # row_boundaries (a row-change mask) and digram_codes (the pair code
     # of every position) stay the direct counterparts of the Pallas
@@ -2216,13 +2750,21 @@ def main() -> int:
                           flat_params=flat_params, build=_build,
                           session=recorder.session,
                           RecorderConfig=recorder.RecorderConfig,
-                          TraceReader=TraceReader)
+                          TraceReader=TraceReader, Trainer=Trainer,
+                          TrainerConfig=TrainerConfig,
+                          AdamWConfig=AdamWConfig, adamw_init=adamw_init,
+                          SyntheticConfig=SyntheticConfig,
+                          synthetic_batch=synthetic_batch,
+                          make_train_step=make_train_step,
+                          cast_params=cast_params, tree_map=tree_map,
+                          state_nbytes=state_nbytes, k=k)
     # f32 products in full f32 (PyTorch's default, stated): the f32 checks
     # against plain versions assume it
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    srv.smi = smi
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     require(eb.default_backend() == "cuda", "cuda must be the default")
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2320,11 +2862,16 @@ def main() -> int:
             for spec in SERVE_SPECS[1:]:
                 serves[spec.arch] = phase_serve(srv, spec)
             prime = prime_prefill(srv, SERVE_SPECS[1])
+        with Phase("train"):
+            train = phase_train(srv)
     finally:
         for mod, name, real in originals:
             setattr(mod, name, real)
     serve_counts = {a: r["launches"] for a, r in serves.items()}
     serve_counts[f"{prime['arch']}@{PRIME_PROMPT}"] = prime["launches"]
+    serve_counts[f"train {train['arch']}"] = train["launches"]
+    serve_counts[f"train {train['dense']['arch']}"] = train["dense"][
+        "launches"]
     log(f"main-path launches, phases 3-6: {launches}; serve runs: "
         f"{serve_counts}")
     for _mod, name in wrappers:

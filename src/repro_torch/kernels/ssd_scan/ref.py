@@ -38,25 +38,31 @@ def ssd_scan_chunked_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              + sum_{p <= q} (c_q . b_p) exp(cs_q - cs_p) dt_p x_p
       h'   = exp(cs_Q) h  +  sum_q b_q (outer) dt_q exp(cs_Q - cs_q) x_q
 
-    all in f32.  The decay above the diagonal (q < p) may overflow to inf;
-    it is selected away, never multiplied by 0."""
+    all in f32, or in f64 when x is f64 (a yardstick for the f32 versions
+    where strong decays make them ill-conditioned).  The decay above the
+    diagonal (q < p) would overflow to inf: its exponent is masked to -inf
+    first, so the decay there is 0 and so is its gradient (an inf selected
+    away after the exponential would make the backward 0 * inf = NaN), and
+    the weights there are selected away, never multiplied by 0."""
     B, nc, Q, nh, hd = x.shape
     ns = b.shape[-1]
     dev = x.device
-    h = torch.zeros((B, nh, ns, hd), dtype=torch.float32, device=dev)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    h = torch.zeros((B, nh, ns, hd), dtype=acc, device=dev)
     y = torch.empty(x.shape, dtype=x.dtype, device=dev)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
     for ci in range(nc):
-        xb = x[:, ci].float().permute(0, 2, 1, 3)        # (B, nh, Q, hd)
-        bb = b[:, ci].float()                            # (B, Q, ns)
-        cb = c[:, ci].float()                            # (B, Q, ns)
-        dtb = dt[:, ci].float().transpose(1, 2)          # (B, nh, Q)
-        cs = torch.cumsum(da[:, ci].float(), dim=1).transpose(1, 2)
+        xb = x[:, ci].to(acc).permute(0, 2, 1, 3)        # (B, nh, Q, hd)
+        bb = b[:, ci].to(acc)                            # (B, Q, ns)
+        cb = c[:, ci].to(acc)                            # (B, Q, ns)
+        dtb = dt[:, ci].to(acc).transpose(1, 2)          # (B, nh, Q)
+        cs = torch.cumsum(da[:, ci].to(acc), dim=1).transpose(1, 2)
         tot = cs[..., -1:]                               # (B, nh, 1)
         y_inter = torch.exp(cs)[..., None] * torch.einsum(
             "bqs,bhsd->bhqd", cb, h)
         scores = (cb @ bb.transpose(1, 2))[:, None]      # (B, 1, Q, Q)
-        ldecay = torch.exp(cs[..., :, None] - cs[..., None, :])
+        ldecay = torch.exp(torch.where(
+            causal, cs[..., :, None] - cs[..., None, :], float("-inf")))
         w = torch.where(causal, scores * ldecay * dtb[..., None, :], 0.0)
         y_intra = w @ xb                                 # (B, nh, Q, hd)
         y[:, ci] = (y_inter + y_intra).permute(0, 2, 1, 3).to(x.dtype)
@@ -128,7 +134,8 @@ def _passes(x, b, c, dt, da, h, op):
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=x.device))
     scores = (cf @ bf.transpose(2, 3))[:, :, None]       # (B, nc, 1, Q, Q)
-    ldecay = torch.exp(cs[..., :, None] - cs[..., None, :])
+    ldecay = torch.exp(torch.where(
+        causal, cs[..., :, None] - cs[..., None, :], float("-inf")))
     w = torch.where(causal, scores * ldecay * dtf[..., None, :], 0.0)
     y = y_inter + op(w) @ xf
     return y.permute(0, 1, 3, 2, 4).to(x.dtype), h

@@ -37,8 +37,8 @@ def model_device(device) -> torch.device:
 
 
 class ModelAPI:
-    """init / forward / prefill / decode of the dense, SSM and hybrid
-    families on one device."""
+    """init / forward / loss / prefill / decode of the dense, SSM and
+    hybrid families on one device."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         for refused, family in _NOT_PORTED:
@@ -58,6 +58,9 @@ class ModelAPI:
     def train_forward(self, params, batch) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
         return lm.train_forward(self.cfg, params, batch)
+
+    def loss_fn(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        return lm.loss_fn(self.cfg, params, batch)
 
     def prefill(self, params, batch):
         return lm.prefill(self.cfg, params, batch)

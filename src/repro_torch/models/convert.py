@@ -12,11 +12,20 @@ layout.
 bfloat16 leaves arrive as numpy arrays of ``ml_dtypes.bfloat16``; they
 are recognised by dtype name and carried bit for bit through a uint16
 view, so neither ``ml_dtypes`` nor ``jax`` is imported here.
+
+The train state -- ``{"master", "mu", "nu", "step"}``, three parameter
+trees and an int32 step -- goes the same way and back:
+``state_to_numpy`` stacks the per-layer lists into the JAX package's
+layout (host copies; what ``jax.tree.map(np.asarray, state)`` gives
+there), which the checkpoint engine writes, and ``state_from_numpy``
+splits a tree of that layout (a restored checkpoint, the JAX package's
+state) into the port's on a device.  A bfloat16 leaf on the host is a CPU
+torch tensor, since numpy has no such dtype.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,8 +35,13 @@ from .config import ModelConfig
 
 def tensor_from_numpy(a, device, dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
-    """One numpy leaf -> tensor on ``device`` (bf16 bit for bit); cast to
-    ``dtype`` when it is given and the leaf is floating point."""
+    """One numpy leaf (or host tensor) -> tensor on ``device`` (bf16 bit
+    for bit); cast to ``dtype`` when it is given and the leaf is floating
+    point."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().to(device, copy=True)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() \
+            else t
     a = np.array(a, order="C")        # a writable copy
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -65,6 +79,105 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device,
     if "layers" in tree:
         layers = _split_layers(tree["layers"], cfg.n_layers)
         out["layers"] = [_convert(lp, device, dtype) for lp in layers]
+    return out
+
+
+def _host(t: torch.Tensor):
+    """A host copy of ``t``: numpy, or a CPU tensor for bfloat16."""
+    t = t.detach().to("cpu", copy=True)
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def tree_map(fn: Callable, *trees, in_layers: bool = False):
+    """``fn(*leaves, in_layers)`` over trees of one structure (dicts and
+    lists; a tuple is a leaf); ``in_layers`` tells whether the leaf lies
+    under ``"layers"``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees),
+                            in_layers=in_layers or k == "layers")
+                for k in first}
+    if isinstance(first, list):
+        return [tree_map(fn, *(t[i] for t in trees), in_layers=in_layers)
+                for i in range(len(first))]
+    return fn(*trees, in_layers)
+
+
+def reference_leaves(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(name, leaf) pairs of a tree in the JAX package's layout, in the
+    order and with the names of ``jax.tree_util.tree_flatten_with_path``:
+    dict keys sorted, list items by index, the path joined by ``/``."""
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    out: List[Tuple[str, Any]] = []
+    for k, v in items:
+        out += reference_leaves(v, f"{prefix}/{k}" if prefix else k)
+    return out
+
+
+def reference_ndim(t: torch.Tensor, in_layers: bool) -> int:
+    """The leaf's rank in the JAX package's stacked layout."""
+    return t.dim() + int(in_layers)
+
+
+def _stack_layers(layers: List[Dict], stack: Callable) -> Dict:
+    """Per-layer dicts -> one dict whose leaves ``stack`` the layers."""
+    return {k: _stack_layers([lp[k] for lp in layers], stack)
+            if isinstance(v, dict) else stack([lp[k] for lp in layers])
+            for k, v in layers[0].items()}
+
+
+def _reference_layout(params: Dict[str, Any], leaf: Callable,
+                      stack: Callable) -> Dict[str, Any]:
+    out = {k: tree_map(lambda x, _: leaf(x), v)
+           for k, v in params.items() if k != "layers"}
+    if "layers" in params:
+        out["layers"] = _stack_layers(params["layers"], stack)
+    return out
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's parameters (or gradients) -> host copies in the JAX
+    package's layout, the inverse of :func:`params_from_numpy`."""
+    return _reference_layout(params, _host,
+                             lambda ts: _host(torch.stack(ts)))
+
+
+def _meta(t: torch.Tensor, lead=()) -> torch.Tensor:
+    return torch.empty(tuple(lead) + tuple(t.shape), dtype=t.dtype,
+                       device="meta")
+
+
+_STATE_TREES = ("master", "mu", "nu")
+
+
+def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """Train state -> host copies in the JAX package's layout."""
+    out = {k: params_to_numpy(state[k]) for k in _STATE_TREES}
+    out["step"] = _host(state["step"])
+    return out
+
+
+def state_shapes(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's layout of ``state`` as meta tensors (shapes and
+    dtypes, no data): what a checkpoint restore reads into."""
+    out = {k: _reference_layout(state[k], _meta,
+                                lambda ts: _meta(ts[0], (len(ts),)))
+           for k in _STATE_TREES}
+    out["step"] = _meta(state["step"])
+    return out
+
+
+def state_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device
+                     ) -> Dict[str, Any]:
+    """A train state in the JAX package's layout (numpy leaves, or CPU
+    tensors for bfloat16) -> the port's on ``device``."""
+    out = {k: params_from_numpy(cfg, tree[k], device) for k in _STATE_TREES}
+    out["step"] = tensor_from_numpy(tree["step"], device)
     return out
 
 

@@ -9,7 +9,9 @@ Two attention paths, selected by ``cfg.attn_impl`` as ``layers.py:348``
 does in the JAX package:
 
   "cuda"   the hand-written flash-attention kernel
-           (``kernels.flash_attention``); on CPU tensors its plain version
+           (``kernels.flash_attention``); on CPU tensors its plain version;
+           when a gradient is needed, the backward pass recomputes the
+           plain version (``kernels/_grad.py``)
   "torch"  :func:`flash_attention_torch`, the chunked online-softmax
            attention of ``flash_attention_xla`` in plain PyTorch
 
@@ -29,8 +31,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import _grad
 from ..kernels.flash_attention import ops as flash_ops
+from ..kernels.flash_attention.ref import flash_attention_ref
 from ..kernels.rmsnorm import ops as rmsnorm_ops
+from ..kernels.rmsnorm.ref import rmsnorm_ref
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -86,8 +91,11 @@ def apply_norm(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
 def rms_norm_head(x: torch.Tensor, scale: torch.Tensor, eps: float
                   ) -> torch.Tensor:
     """Per-head RMS norm over the last dim (qwen3 qk_norm): the RMSNorm
-    kernel's function, f32 statistics and one cast at the end."""
-    return rmsnorm_ops.rmsnorm(x.contiguous(), scale, eps=eps)
+    kernel's function, f32 statistics and one cast at the end.  A training
+    step may hand over a bf16 ``scale`` (``launch.steps.cast_params``); it
+    is widened to f32, as the JAX package's f32 product widens it."""
+    return _grad.apply(rmsnorm_ops.rmsnorm, rmsnorm_ref, x.contiguous(),
+                       scale.float(), eps=eps)
 
 
 # ---------------------------------------------------------------------------
@@ -282,8 +290,9 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """Full-sequence attention on the path ``cfg.attn_impl`` selects."""
     if cfg.attn_impl == "cuda":
-        return flash_ops.flash_attention(q, k, v, causal=cfg.causal,
-                                         window=cfg.sliding_window)
+        return _grad.apply(flash_ops.flash_attention, flash_attention_ref,
+                           q, k, v, causal=cfg.causal,
+                           window=int(cfg.sliding_window))
     if cfg.attn_impl == "torch":
         return flash_attention_torch(q, k, v, causal=cfg.causal,
                                      window=cfg.sliding_window,

@@ -10,9 +10,14 @@ leaves); ``layers[i]`` holds what ``layers[...][i]`` holds there.
 
 Entry points:
 
-  train_forward  -> logits + aux  (full sequence, causal; forward only)
+  train_forward  -> logits + aux  (full sequence, causal)
+  loss_fn        -> mean token cross-entropy + metrics (differentiable)
   prefill        -> last-position logits + per-layer decode caches
   decode_step    -> next-token ids + updated caches (one token)
+
+With ``cfg.remat == "block"`` and autograd on, every block runs under
+``torch.utils.checkpoint`` (the JAX package checkpoints its scan body), so
+a backward pass recomputes each block's forward, kernels included.
 
 MoE, MLA, encoder-decoder and VLM configurations are not ported yet
 (``models.get_model`` refuses them).
@@ -23,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from . import layers as L
@@ -155,18 +161,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     return p
 
 
-def _tokens(params: Params, tokens) -> torch.Tensor:
-    """Token ids (numpy array or tensor) as int64 on the params' device."""
-    dev = params["embed"].device
+def _tokens(device, tokens) -> torch.Tensor:
+    """Token ids or labels (numpy array or tensor) as int64 on ``device``."""
     if isinstance(tokens, torch.Tensor):
-        return tokens.to(device=dev, dtype=torch.int64)
-    return torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+        return tokens.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(tokens, dtype=torch.int64, device=device)
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token embeddings and positions."""
-    tok = _tokens(params, batch["tokens"])
+    tok = _tokens(params["embed"].device, batch["tokens"])
     x = params["embed"][tok].to(L.torch_dtype(cfg.dtype))
     B, S = tok.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -176,8 +181,13 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict
 def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     kind = layer_kind(cfg)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
     for lp in params["layers"]:
-        x = block_apply(lp, cfg, x, positions, kind)
+        if remat:
+            x = checkpoint(block_apply, lp, cfg, x, positions, kind,
+                           use_reentrant=False)
+        else:
+            x = block_apply(lp, cfg, x, positions, kind)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -185,12 +195,15 @@ def logits_f32(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,vd->bsv", x, lm_head)`` with the head in x's dtype
     and the result in f32, as the JAX package's
     ``preferred_element_type=f32``.  On the card a bf16 product writes f32
-    directly (``torch.mm(..., out_dtype=)``); on the CPU both operands are
-    upcast, which gives the same products (exact in f32)."""
+    directly (``torch.mm(..., out_dtype=)``) when no gradient is needed;
+    otherwise, and on the CPU, both operands are upcast, which gives the
+    same products (exact in f32)."""
     head = lm_head.to(x.dtype)
     if x.dtype == torch.float32:
         return x @ head.t()
-    if x.is_cuda:
+    # the out_dtype product is taken only where no gradient is needed
+    if x.is_cuda and not (torch.is_grad_enabled()
+                          and (x.requires_grad or head.requires_grad)):
         out = torch.mm(x.reshape(-1, x.shape[-1]), head.t(),
                        out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], head.shape[0])
@@ -204,6 +217,59 @@ def train_forward(cfg: ModelConfig, params: Params, batch: Dict
     x, aux = _run_stack(cfg, params, x, positions)
     x = L.apply_norm(x, params["final_norm"], cfg)
     return logits_f32(x, params["lm_head"]), aux
+
+
+def chunked_ce(cfg: ModelConfig, x: torch.Tensor, lm_head: torch.Tensor,
+               labels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without materializing full-sequence logits (the JAX
+    package's ``chunked_ce``, ``lm.py:242``).
+
+    When ``cfg.loss_chunk`` divides a longer sequence, the chunks of
+    ``loss_chunk`` positions are taken one after another, each under
+    ``torch.utils.checkpoint``, so only one chunk's (B, C, V) f32 logits
+    live at a time in backward too; otherwise the whole sequence is one
+    chunk.  Positions whose label is negative are masked out.  Returns
+    (nll_sum, token_count), both f32."""
+    labels = _tokens(x.device, labels)
+    S = x.shape[1]
+    mask = labels >= 0
+    labels = torch.clamp(labels, min=0)
+    C = cfg.loss_chunk
+    head = lm_head.to(x.dtype)
+    maskf = mask.to(torch.float32)
+    ntok = mask.sum().to(torch.float32)
+    if not C or S <= C or S % C:
+        return _ce(x, head, labels, maskf), ntok
+    remat = torch.is_grad_enabled()
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, C):
+        args = (x[:, s0:s0 + C], head, labels[:, s0:s0 + C],
+                maskf[:, s0:s0 + C])
+        nll = nll + (checkpoint(_ce, *args, use_reentrant=False) if remat
+                     else _ce(*args))
+    return nll, ntok
+
+
+def _ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+        maskf: torch.Tensor) -> torch.Tensor:
+    """sum over positions of (logsumexp - gold logit) * mask, in f32."""
+    logits = logits_f32(x, head)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((lse - gold) * maskf)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean cross-entropy over the unmasked labels (+ aux, 0 for the
+    ported families); metrics ``nll``, ``aux`` and ``ntok``."""
+    x, positions = _embed_inputs(cfg, params, batch)
+    x, aux = _run_stack(cfg, params, x, positions)
+    x = L.apply_norm(x, params["final_norm"], cfg)
+    nll_sum, ntok = chunked_ce(cfg, x, params["lm_head"], batch["labels"])
+    denom = torch.clamp(ntok, min=1.0)
+    loss = nll_sum / denom + aux
+    return loss, {"nll": nll_sum / denom, "aux": aux, "ntok": ntok}
 
 
 # -- serving ----------------------------------------------------------------
@@ -250,7 +316,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict, tokens
     caches are returned with ``pos`` advanced."""
     pos = cache["pos"]
     pos0 = int(pos[0])
-    x = params["embed"][_tokens(params, tokens)].to(L.torch_dtype(cfg.dtype))
+    x = params["embed"][_tokens(params["embed"].device, tokens)].to(
+        L.torch_dtype(cfg.dtype))
     kind = layer_kind(cfg)
     new_caches = []
     for lp, lc in zip(params["layers"], cache["layers"]):

@@ -11,7 +11,9 @@ Two chunk-scan paths, selected by ``cfg.ssm_impl`` as ``attn_impl``
 selects the attention:
 
   "cuda"   the hand-written SSD chunk-scan kernel (``kernels.ssd_scan``,
-           with ``return_state``); on CPU tensors its plain version
+           with ``return_state``); on CPU tensors its plain version; when
+           a gradient is needed, the backward pass recomputes the plain
+           version (``kernels/_grad.py``)
   "torch"  the kernel's plain version (``kernels/ssd_scan/ref.py``),
            which computes the JAX package's ``chunk_step`` loop
            (``ssm.py:110-137``) in plain PyTorch
@@ -25,12 +27,14 @@ runs it in XLA.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels import _grad
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import ssd_scan_chunked_ref
 from .config import ModelConfig
@@ -91,7 +95,9 @@ def ssd_chunk_scan(cfg: ModelConfig, x, b, c, dt, da
     """The chunk scan on the path ``cfg.ssm_impl`` selects: (y, final
     state)."""
     if cfg.ssm_impl == "cuda":
-        return ssd_ops.ssd_scan(x, b, c, dt, da, return_state=True)
+        return _grad.apply(functools.partial(ssd_ops.ssd_scan,
+                                             return_state=True),
+                           ssd_scan_chunked_ref, x, b, c, dt, da)
     if cfg.ssm_impl == "torch":
         return ssd_scan_chunked_ref(x, b, c, dt, da)
     raise ValueError(f"ssm_impl must be 'cuda' or 'torch', got "

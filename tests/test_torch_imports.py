@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``repro_torch`` and nothing in
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
 importing the port's Recorder, its read side, its trace service, its
-models, serving engine and configs leaves ``jax`` unloaded."""
+models, serving engine, training side and configs leaves ``jax``
+unloaded."""
 
 import ast
 import os
@@ -60,7 +61,10 @@ def test_recorder_import_leaves_jax_unloaded():
             "repro_torch.configs, repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.ssd_scan, "
             "repro_torch.models.ssm, repro_torch.distributed, "
-            "repro_torch.distributed.sharding, repro_torch.core.comm; "
+            "repro_torch.distributed.sharding, repro_torch.core.comm, "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.train, repro_torch.launch.steps, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(_REPO, "src"))

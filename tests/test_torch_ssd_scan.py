@@ -102,6 +102,19 @@ def test_final_state_matches_token_recurrence(B, nc, Q, nh, hd, ns, dtype):
 
 
 @pytest.mark.parametrize("B,nc,Q,nh,hd,ns", SHAPES)
+def test_plain_ssd_scan_in_f64_is_the_exact_recurrence(B, nc, Q, nh, hd, ns):
+    """f64 inputs run the plain version in f64 (the yardstick that the card
+    check holds the f32 kernel to under strong decays): its state is the
+    token recurrence's in f64, and its y the f32 plain version's."""
+    _, tx = _inputs(B, nc, Q, nh, hd, ns, "float32", seed=nc + Q + ns)
+    y, h = ssd_scan_chunked_ref(*(t.double() for t in tx))
+    assert y.dtype == h.dtype == torch.float64
+    np.testing.assert_allclose(h.numpy(), _numpy_state(*tx[:2], *tx[3:]),
+                               atol=1e-12, rtol=1e-12)
+    _close(y, ssd_scan_chunked_ref(*tx)[0], "float32")
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hd,ns", SHAPES)
 def test_token_oracle_matches_jax(B, nc, Q, nh, hd, ns):
     jx, tx = _inputs(B, nc, Q, nh, hd, ns, "float32", seed=3)
     _close(ssd_scan_token_ref(*tx), _token_ref(*jx), "float32")
