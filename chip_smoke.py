@@ -77,7 +77,9 @@ csrc`` and then runs, in order:
                 as often as the structure implies, and the same weights
                 and prompts run again on the plain ``"torch"`` attention
                 path to compare with; the qwen3-32b smoke model on the
-                card must give the CPU's logits and tokens;
+                card must give the CPU's logits and tokens; a request that
+                would decode past ``max_seq`` on its dense KV cache must
+                raise ``ValueError`` before any launch;
 9. serve_ssm -- the same for the SSM family, mamba2-370m at full depth (48
                 layers), and the hybrid one, hymba-1.5b at full depth (32
                 layers), with 4 prompts of 2,048 tokens each; their plain
@@ -108,7 +110,25 @@ csrc`` and then runs, in order:
                 prints step time, tokens/s, device busy and idle share,
                 peak memory, checkpoint seconds and bytes and the trace's
                 records and bytes beside the card's name and power limit;
-11. report   -- the kernels' launch counts from phases 3-6 and from the
+11. evaluation -- the paper's size evaluation through the port's
+                ``run_ranks`` and baselines on the ``cuda`` backend, at the
+                reference scripts' rank counts: Figs 4-5 (IOR, 4-64 ranks,
+                32-1,024 calls, patterns on and off), Fig 6 (FLASH, 60
+                iterations, 4 to 512 ranks: Recorder's pattern bytes within
+                16 B, Recorder-old's growing; growing and rolling files at
+                8 ranks), Fig 7 (collective, 64 and 1,024 ranks), Table 4
+                (16, 64 and 256 ranks, 100 iterations, both modes:
+                Recorder-old over 5x Recorder, Darshan-like beside them),
+                each job recorded once and finalized flat on ``cuda``, then
+                again flat on ``numpy`` (sizes and bytes equal) and, but in
+                Fig 7, tree (sizes equal); one
+                ``fit_columns`` launch a fit dispatch (at least one where
+                ranks have groups to fit, up to (groups, 1,024)) and one
+                ``delta_zigzag`` a rank with timestamps on, counts set to 0
+                before each job; then Fig 10, the record-path cost of no
+                tool, Recorder, Recorder-old and Darshan-like (one rank,
+                1,000 iterations, best of 3), printed only;
+12. report   -- the kernels' launch counts from phases 3-6 and from the
                 serve runs (each must be above 0, but 0 for the direct
                 counterparts that the main path no longer launches:
                 ``uvarint_encode64``, ``row_boundaries``, ``digram_codes``)
@@ -121,7 +141,8 @@ csrc`` and then runs, in order:
                 (the bf16 SSD scan launches three); flash attention and
                 the SSD scan also at hymba's serve shape
                 (``other_shape``), and their f32 paths (the CUDA-core
-                kernels) at the serve shapes on a line before it.
+                kernels) at the serve shapes on a line before it; each
+                row also carries its ``evaluation_launches``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the run exits non-zero and prints no such line.  Without a
@@ -131,6 +152,7 @@ CUDA card, or without the rest of the repository beside it, it fails.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 import hashlib
 import json
@@ -1425,6 +1447,28 @@ def phase_serve(s, spec: ServeSpec) -> dict:
     batch = {"tokens": np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(SERVE_BATCH, spec.prompt)).astype(np.int32)}
     eng = s.ServeEngine(cfg, params, max_seq=spec.max_seq, device=dev)
+    if cfg.family != "ssm" and not cfg.sliding_window:
+        # a dense KV cache holds max_seq positions: a request whose last
+        # step would write past them is refused before any kernel launch
+        over = spec.max_seq - spec.prompt + 2
+        torch.cuda.synchronize()
+        s.build.reset_launches()
+        refused = None
+        try:
+            eng.generate(batch, over)
+        except ValueError as e:
+            refused = str(e)
+        torch.cuda.synchronize()
+        require(refused is not None,
+                f"serve {cfg.name}: {spec.prompt} + {over} tokens past "
+                f"max_seq {spec.max_seq} were not refused")
+        require(s.build.launch_counts() == {} and eng.stats == {},
+                f"serve {cfg.name}: the refused request launched "
+                f"{s.build.launch_counts()}")
+        res["overrun_refused"] = True
+        log(f"serve {cfg.name}: {spec.prompt} prompt + {over} new tokens "
+            f"past max_seq {spec.max_seq} refused before any kernel "
+            f"launch: {refused}")
     eng.generate(batch, 2)                 # warm-up: cuBLAS, first loads
     toks = eng.generate(batch, SERVE_NEW)  # timed, neither traced nor profiled
     st = dict(eng.stats)
@@ -2006,6 +2050,341 @@ def dense_train(s) -> dict:
 # ---------------------------------------------------------------------------
 # timing at the main path's shapes
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phase evaluation: the paper's size evaluation (Figs 4-7, Table 4, Fig 10)
+# through the port's run_ranks and baselines, at the rank counts of the
+# reference's own scripts
+# ---------------------------------------------------------------------------
+
+EVAL_FIG6_RANKS = (4, 16, 64, 256, 512)  # examples/constant_trace_scaling.py
+EVAL_TABLE4_RANKS = (16, 64, 256)        # benchmarks/tool_comparison.py
+EVAL_FIG10_ITERS = 1000                  # benchmarks/overhead.py, best of 3
+EVAL_FIG10_REPEATS = 3
+EVAL_KERNELS = ("fit_columns", "delta_zigzag", "uvarint_pack64")
+
+
+def parts_digest(parts: dict) -> str:
+    """sha256 over what ``run_ranks``'s sizes count: the merged CST
+    entries, the unique grammars, the cfg index and the timestamp blobs."""
+    h = hashlib.sha256()
+    for key in ("merged_entries", "unique_cfgs", "timestamps"):
+        h.update(key.encode() + len(parts[key]).to_bytes(8, "little"))
+        for blob in parts[key]:
+            h.update(len(blob).to_bytes(8, "little") + blob)
+    h.update(np.asarray(parts["cfg_index"], np.int64).tobytes())
+    return h.hexdigest()
+
+
+class Tee:
+    """Feeds every record to several baseline tools: one pass of the calls
+    serves them all."""
+
+    def __init__(self, *tools):
+        self.tools = tools
+
+    def record(self, *args) -> None:
+        for tool in self.tools:
+            tool.record(*args)
+
+
+class Evaluation:
+    """The jobs of phase evaluation.  ``job`` runs one workload through
+    ``run_ranks`` flat on ``cuda``, the launch counts set to 0 just before
+    and read just after; then ``finalize_recorders`` finalizes the same
+    recorded calls flat on ``numpy`` (sizes equal; merged entries,
+    grammars, cfg index and timestamp blobs equal bit for bit) and, with
+    ``tree``, tree on ``cuda`` (sizes equal).  ``fit_classify`` is counted
+    by backend, so that each ``cuda`` job must launch ``fit_columns`` once
+    a fit dispatch of its ``numpy`` twin."""
+
+    def __init__(self, ev, smi: str):
+        self.ev, self.smi = ev, smi
+        self.data_dir = os.path.join(WORK, "eval", "data")
+        self.fits = []               # (backend, (C, R)) of each dispatch
+        self.launches = collections.Counter()   # summed over cuda jobs
+        self.jobs = 0
+        self.tree_jobs = 0
+        self.fit_jobs = 0
+        self.max_fit = (0, 0)        # (C, R) of the most ranks fitted
+        self.cuda_s = 0.0
+        self.busy_ms = 0.0           # device busy time of the cuda jobs
+
+    def fit_shim(self, V, backend=None, _real=None):
+        self.fits.append((backend, tuple(V.shape)))
+        return _real(V, backend)
+
+    def finalize(self, recs: list, backend: str, topology: str,
+                 parts=None) -> dict:
+        """The recorded calls of ``recs`` finalized again on ``backend``."""
+        ev = self.ev
+        configs = [rec.config for rec in recs]
+        ev.eb.set_default_backend(backend)
+        try:
+            for rec in recs:
+                rec.config = dataclasses.replace(rec.config,
+                                                 encode_backend=backend)
+            return ev.wl.finalize_recorders(recs, topology, parts=parts)
+        finally:
+            for rec, config in zip(recs, configs):
+                rec.config = config
+            ev.eb.set_default_backend(BACKEND)
+
+    def job(self, workload: str, nprocs: int, cfg_kw: dict, tree: bool,
+            **kw) -> dict:
+        from torch.profiler import ProfilerActivity, profile
+        ev, build = self.ev, self.ev.build
+        what = f"{workload} x {nprocs} {cfg_kw} {kw}"
+        self.fits.clear()
+        got_parts, want_parts = {}, {}
+        torch.cuda.synchronize()
+        build.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.monotonic()
+            got = ev.wl.run_ranks(
+                getattr(ev.wl, workload), nprocs,
+                ev.RecorderConfig(encode_backend=BACKEND, **cfg_kw), "flat",
+                parts=got_parts, data_dir=self.data_dir, **kw)
+            torch.cuda.synchronize()
+            self.cuda_s += time.monotonic() - t
+        self.busy_ms += device_busy_ms(prof)
+        launches = build.launch_counts()
+        cuda_fits = [shape for b, shape in self.fits if b == BACKEND]
+        self.fits.clear()
+        recs = got_parts["recorders"]
+        want = self.finalize(recs, "numpy", "flat", want_parts)
+        numpy_fits = [shape for b, shape in self.fits if b == "numpy"]
+        require(got == want, f"evaluation {what}: cuda sizes {got} != "
+                f"numpy sizes {want}")
+        require(parts_digest(got_parts) == parts_digest(want_parts),
+                f"evaluation {what}: cuda and numpy bytes differ")
+        n_fit = launches.get("fit_columns", 0)
+        require(n_fit == len(cuda_fits) == len(numpy_fits),
+                f"evaluation {what}: {len(numpy_fits)} fit dispatches on "
+                f"numpy, {len(cuda_fits)} on cuda, {n_fit} fit_columns "
+                f"launches")
+        if cfg_kw.get("inter_patterns", True) and nprocs > 1:
+            require(n_fit >= 1, f"evaluation {what}: no fit_columns launch "
+                    f"in a job with rank-linear groups to fit")
+        want_dz = nprocs if cfg_kw.get("timestamps", True) else 0
+        require(launches.get("delta_zigzag", 0) == want_dz,
+                f"evaluation {what}: delta_zigzag launched "
+                f"{launches.get('delta_zigzag', 0)} times, want {want_dz}")
+        if tree:
+            got_tree = self.finalize(recs, BACKEND, "tree")
+            require(got_tree == got, f"evaluation {what}: tree sizes "
+                    f"{got_tree} != flat sizes {got}")
+            self.tree_jobs += 1
+        self.jobs += 1
+        self.fit_jobs += n_fit > 0
+        self.launches.update(launches)
+        for shape in cuda_fits:
+            self.max_fit = max(self.max_fit, shape, key=lambda s: s[::-1])
+        got["launches"] = launches
+        return got
+
+    def baselines(self, tool_classes: tuple, nprocs: int, **kw) -> list:
+        """Each baseline's bytes over all ranks (Recorder-old's buffer,
+        Darshan-like's serialized log), the tools fed together through one
+        ``ToolAdapter`` a rank, behind the same wrappers."""
+        ev = self.ev
+        totals = [0] * len(tool_classes)
+        for r in range(nprocs):
+            tools = [cls(r) for cls in tool_classes]
+            ev.wl.flash_rank(ev.bl.ToolAdapter(Tee(*tools), rank=r), r,
+                             nprocs, data_dir=self.data_dir, **kw)
+            for i, tool in enumerate(tools):
+                totals[i] += (len(tool.serialize())
+                              if hasattr(tool, "serialize") else tool.nbytes)
+        return totals
+
+
+def eval_figs45(e: Evaluation) -> dict:
+    """Figs 4 and 5 (IOR, timestamps off): the cases and assertions of
+    tests/test_scaling_invariants.py:24-58."""
+    def ior(nprocs, n_calls, **c):
+        return e.job("ior_rank", nprocs, dict(timestamps=False, **c), True,
+                     n_calls=n_calls)["pattern_bytes"]
+    r = {"intra_32": ior(8, 32), "intra_1024": ior(8, 1024),
+         "nointra_32": ior(8, 32, intra_patterns=False),
+         "nointra_1024": ior(8, 1024, intra_patterns=False),
+         "inter_4": ior(4, 128), "inter_64": ior(64, 128),
+         "nointer_4": ior(4, 128, inter_patterns=False),
+         "nointer_64": ior(64, 128, inter_patterns=False),
+         "base_16": ior(16, 128),
+         "nointra_inter_4": ior(4, 128, intra_patterns=False),
+         "nointra_inter_64": ior(64, 128, intra_patterns=False)}
+    require(abs(r["intra_1024"] - r["intra_32"]) <= 4,
+            f"Fig 4: pattern bytes grow with calls: {r}")
+    require(r["nointra_1024"] > 8 * r["nointra_32"],
+            f"Fig 4: without intra patterns the bytes must grow: {r}")
+    require(abs(r["inter_64"] - r["inter_4"]) <= 8,
+            f"Fig 5: pattern bytes grow with ranks: {r}")
+    require(r["nointer_64"] > 10 * r["nointer_4"],
+            f"Fig 5: without inter patterns the bytes must grow: {r}")
+    require(abs(r["nointra_inter_64"] - r["nointra_inter_4"])
+            <= 0.05 * r["nointra_inter_4"]
+            and r["nointra_inter_4"] > r["base_16"],
+            f"Fig 5: intra off, inter on must stay constant and larger: {r}")
+    log(f"Figs 4-5 (IOR pattern bytes) [{e.smi}]: {json.dumps(r)}")
+    return r
+
+
+def eval_fig6(e: Evaluation) -> dict:
+    """Fig 6 (FLASH weak scaling, 60 iterations): Recorder's pattern bytes
+    within 16 B of one another from 4 to 512 ranks, Recorder-old's growing;
+    then the growing and rolling cases at 8 ranks (:61-79)."""
+    rows = []
+    log(f"Fig 6 [{e.smi}]: ranks, records, Recorder CFG+CST B, "
+        f"Recorder-old B, ratio")
+    for n in EVAL_FIG6_RANKS:
+        r = e.job("flash_rank", n, {"timestamps": False}, True,
+                  iterations=60)
+        old, = e.baselines((e.ev.bl.RecorderOld,), n, iterations=60)
+        rows.append({"nprocs": n, "n_records": r["n_records"],
+                     "pattern_bytes": r["pattern_bytes"], "old_bytes": old,
+                     "ratio": old / r["pattern_bytes"],
+                     "fit_columns": r["launches"].get("fit_columns", 0)})
+        log(f"Fig 6 [{e.smi}]: {n:4d} {r['n_records']:7d} "
+            f"{r['pattern_bytes']:6d} B {old:9d} B "
+            f"{old / r['pattern_bytes']:8.1f}x")
+    pb = [row["pattern_bytes"] for row in rows]
+    old = [row["old_bytes"] for row in rows]
+    require(max(pb) - min(pb) <= 16,
+            f"Fig 6: pattern bytes {pb} spread over 16 B")
+    require(all(a < b for a, b in zip(old, old[1:])),
+            f"Fig 6: Recorder-old bytes {old} must grow with the ranks")
+
+    def flash8(iterations, rolling):
+        return e.job("flash_rank", 8, {"timestamps": False}, True,
+                     iterations=iterations, rolling=rolling)["pattern_bytes"]
+    grow = (flash8(80, False), flash8(320, False))
+    roll = (flash8(80, True), flash8(320, True))
+    require(grow[1] > grow[0] + 100 and abs(roll[1] - roll[0]) <= 8,
+            f"Fig 6: growing {grow} must grow, rolling {roll} must not")
+    log(f"Fig 6 at 8 ranks, 80 / 320 iterations [{e.smi}]: growing "
+        f"{grow[0]} / {grow[1]} B, rolling {roll[0]} / {roll[1]} B")
+    return {"rows": rows, "growing": grow, "rolling": roll}
+
+
+def eval_fig7(e: Evaluation) -> dict:
+    """Fig 7: collective mode, 64 against 1,024 ranks, 40 iterations,
+    stripe 8 (:82-86): no fewer unique grammars at 1,024."""
+    small, big = (e.job("flash_rank", n, {"timestamps": False}, False,
+                        iterations=40, mode="collective", stripe=8)
+                  for n in (64, 1024))
+    require(big["n_unique_cfgs"] >= small["n_unique_cfgs"],
+            f"Fig 7: {big['n_unique_cfgs']} unique grammars at 1,024 ranks, "
+            f"{small['n_unique_cfgs']} at 64")
+    r = {n: {k: v for k, v in x.items() if k != "launches"}
+         for n, x in ((64, small), (1024, big))}
+    log(f"Fig 7 (collective, stripe 8) [{e.smi}]: {json.dumps(r)}")
+    return r
+
+
+def eval_table4(e: Evaluation) -> list:
+    """Table 4 (benchmarks/tool_comparison.py:26-62): Recorder's total
+    bytes against Recorder-old's and Darshan-like's, 100 iterations,
+    independent and collective; Recorder-old over 5x Recorder (:89-103)."""
+    rows = []
+    log(f"Table 4 [{e.smi}]: mode, ranks, records, Recorder B, "
+        f"Recorder-old B, Darshan-like B, old_over_new, new_over_darshan")
+    for mode in ("independent", "collective"):
+        for n in EVAL_TABLE4_RANKS:
+            rec = e.job("flash_rank", n, {}, True, iterations=100, mode=mode)
+            old, dar = e.baselines((e.ev.bl.RecorderOld,
+                                    e.ev.bl.DarshanLike), n,
+                                   iterations=100, mode=mode)
+            row = {"mode": mode, "nprocs": n, "n_records": rec["n_records"],
+                   "recorder_bytes": rec["total_bytes"],
+                   "recorder_pattern_bytes": rec["pattern_bytes"],
+                   "recorder_old_bytes": old, "darshan_bytes": dar,
+                   "old_over_new": old / rec["total_bytes"],
+                   "new_over_darshan": rec["total_bytes"] / dar}
+            rows.append(row)
+            log(f"Table 4 [{e.smi}]: {mode} {n:4d} {rec['n_records']:7d} "
+                f"{rec['total_bytes']:8d} B {old:9d} B {dar:8d} B "
+                f"{row['old_over_new']:.2f} {row['new_over_darshan']:.2f}")
+            require(old > 5 * rec["total_bytes"],
+                    f"Table 4 {mode} at {n} ranks: Recorder-old {old} B is "
+                    f"not over 5x Recorder's {rec['total_bytes']} B")
+    return rows
+
+
+def eval_fig10(e: Evaluation) -> list:
+    """Fig 10 (benchmarks/overhead.py:29-60): one rank, FLASH iterations
+    on tmpfs, best of 3 a tool: per-call microseconds and wall time
+    relative to no tool.  Printed only: tmpfs is not Lustre."""
+    ev = e.ev
+    d = os.path.join(WORK, "eval", "fig10")
+
+    def time_one(make_tool) -> tuple:
+        best, n_records = float("inf"), 0
+        for _ in range(EVAL_FIG10_REPEATS):
+            shutil.rmtree(d, ignore_errors=True)
+            tool = make_tool()
+            t0 = time.perf_counter()
+            ev.wl.flash_rank(tool, 0, 1, iterations=EVAL_FIG10_ITERS,
+                             data_dir=d)
+            best = min(best, time.perf_counter() - t0)
+            n_records = getattr(tool, "n_records", 0) or getattr(
+                getattr(tool, "_tool", None), "n_records", 0)
+        return best, n_records
+
+    runs = {
+        "none": time_one(lambda: None),
+        "recorder": time_one(lambda: ev.Recorder(
+            0, ev.RecorderConfig(encode_backend=BACKEND))),
+        "recorder_old": time_one(
+            lambda: ev.bl.ToolAdapter(ev.bl.RecorderOld(0))),
+        "darshan": time_one(lambda: ev.bl.ToolAdapter(ev.bl.DarshanLike(0))),
+    }
+    shutil.rmtree(d, ignore_errors=True)
+    base = runs["none"][0]
+    nrec = runs["recorder"][1]
+    require(nrec > 0 and runs["recorder_old"][1] == nrec
+            and runs["darshan"][1] == nrec,
+            f"Fig 10: the tools recorded {runs}")
+    rows = []
+    for name, (secs, n) in runs.items():
+        us = (secs - base) * 1e6 / nrec if name != "none" else 0.0
+        rows.append({"tool": name, "seconds": secs,
+                     "normalized": secs / base, "us_per_call": us,
+                     "n_records": n})
+        log(f"Fig 10 [{e.smi}]: {name}: {secs:.4f} s for "
+            f"{EVAL_FIG10_ITERS} iterations ({nrec} records traced), "
+            f"{secs / base:.3f} x no tool, {us:.3f} us a call")
+    return rows
+
+
+def phase_evaluation(ev, smi: str) -> dict:
+    """The paper's size evaluation on the port, on the ``cuda`` encode
+    backend (Figs 4-7 and Table 4), then Fig 10's record-path cost."""
+    e = Evaluation(ev, smi)
+    real = ev.eb.fit_classify
+    ev.eb.fit_classify = functools.partial(e.fit_shim, _real=real)
+    try:
+        out = {"fig45": eval_figs45(e), "fig6": eval_fig6(e),
+               "fig7": eval_fig7(e), "table4": eval_table4(e)}
+    finally:
+        ev.eb.fit_classify = real
+        shutil.rmtree(os.path.join(WORK, "eval"), ignore_errors=True)
+    out["fig10"] = eval_fig10(e)
+    out["launches"] = dict(e.launches)
+    out["jobs"], out["tree_jobs"] = e.jobs, e.tree_jobs
+    out["cuda_s"], out["busy_ms"] = e.cuda_s, e.busy_ms
+    out["max_fit_shape"] = list(e.max_fit)
+    require(e.fit_jobs > 0 and e.max_fit[1] == 1024,
+            f"evaluation: fit_columns at {e.max_fit} in {e.fit_jobs} jobs; "
+            f"Fig 7 must fit 1,024 ranks")
+    log(f"evaluation [{smi}]: {e.jobs} flat cuda jobs ({e.cuda_s:.2f} s, "
+        f"device busy {e.busy_ms:.3f} ms, idle share "
+        f"{1 - e.busy_ms / (e.cuda_s * 1e3):.6f}), "
+        f"each with cuda bytes equal to numpy's, {e.tree_jobs} with tree "
+        f"sizes equal to flat's; launches {dict(e.launches)} (fit_columns in "
+        f"{e.fit_jobs} jobs, largest matrix (groups, ranks) {e.max_fit})")
+    return out
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 5) -> float:
@@ -2716,6 +3095,8 @@ def main() -> int:
     from repro_torch.models.convert import tree_map
     from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.train.loop import state_nbytes
+    from repro_torch import workloads
+    from repro_torch.core import baselines
 
     k = SimpleNamespace(de=de_ops, de_ref=de_ref, gs=gs_ops, gs_ref=gs_ref,
                         fa=fa_ops, fa_ref=fa_ref, rn=rn_ops, rn_ref=rn_ref,
@@ -2758,6 +3139,9 @@ def main() -> int:
                           make_train_step=make_train_step,
                           cast_params=cast_params, tree_map=tree_map,
                           state_nbytes=state_nbytes, k=k)
+    ev = SimpleNamespace(wl=workloads, bl=baselines, eb=eb, recorder=recorder,
+                         build=_build, Recorder=recorder.Recorder,
+                         RecorderConfig=recorder.RecorderConfig)
     # f32 products in full f32 (PyTorch's default, stated): the f32 checks
     # against plain versions assume it
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2864,6 +3248,8 @@ def main() -> int:
             prime = prime_prefill(srv, SERVE_SPECS[1])
         with Phase("train"):
             train = phase_train(srv)
+        with Phase("evaluation"):
+            evaluation = phase_evaluation(ev, smi)
     finally:
         for mod, name, real in originals:
             setattr(mod, name, real)
@@ -2924,11 +3310,15 @@ def main() -> int:
          for a, r in serves.items()}))
     log("prime prefill summary: " + json.dumps(prime))
     log("multiproc summary: " + json.dumps(multiproc))
+    log("evaluation summary: " + json.dumps(evaluation))
 
     with Phase("report"):
         rows = kernel_report(k, p, shapes, launches, read_inputs,
                              run_inputs[0])
         rows += model_kernel_report(k, srv, shapes, serve_counts, ssd_memory)
+    for row in rows:
+        row["evaluation_launches"] = evaluation["launches"].get(row["name"],
+                                                                0)
     shutil.rmtree(WORK, ignore_errors=True)
     log(f"total {time.monotonic() - t_all:.1f} s (build {build_s:.2f} s)")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -17,6 +17,7 @@ import torch
 from ..core.apis import framework as frame
 from ..models import get_model
 from ..models.config import ModelConfig
+from ..models.lm import layer_kind
 
 
 class ServeEngine:
@@ -37,9 +38,21 @@ class ServeEngine:
         """Greedy-decode ``n_new`` tokens after the prompt batch.
 
         The prefill cache is re-seated into a fresh max_seq cache so long
-        generations never reallocate (static-shape serving).
+        generations never reallocate (static-shape serving).  A dense KV
+        cache (no ``sliding_window``) holds ``max_seq`` positions and no
+        more, so a request whose last decode step would write past it is
+        refused with ``ValueError`` before any prefill; ring caches and
+        SSM state decode past ``max_seq``.  (The JAX package clamps the
+        write and decodes on over a corrupt cache.)
         """
-        B = batch["tokens"].shape[0]
+        B, S = batch["tokens"].shape[:2]
+        last = S + n_new - 1          # positions written by the last step
+        if last > self.max_seq and _bounded_kv(self.cfg):
+            raise ValueError(
+                f"{self.cfg.name}: a prompt of {S} tokens and {n_new} new "
+                f"tokens need {last} cache positions, but max_seq is "
+                f"{self.max_seq} and the KV cache is not a ring "
+                f"(no sliding_window)")
         t0 = time.perf_counter()
         logits, pf_cache = self.model.prefill(self.params, batch)
         cache = _seat(self.model.init_cache(B, self.max_seq), pf_cache)
@@ -55,6 +68,13 @@ class ServeEngine:
                       "decode_s": time.perf_counter() - t1,
                       "decode_steps": n_new - 1}
         return np.concatenate(out, axis=1)
+
+
+def _bounded_kv(cfg: ModelConfig) -> bool:
+    """True when some layer keeps a KV cache of exactly ``max_seq``
+    positions: attention without a sliding window (a windowed cache is a
+    ring, SSM state has no positions)."""
+    return layer_kind(cfg) != "ssm" and not cfg.sliding_window
 
 
 def _seat(cache, pf_cache):

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``repro_torch`` and nothing in
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
-importing the port's Recorder, its read side, its trace service, its
-models, serving engine, training side and configs leaves ``jax``
-unloaded."""
+importing the port's Recorder, its baselines and workloads, its read
+side, its trace service, its models, serving engine, training side and
+configs leaves ``jax`` unloaded.  The port's examples are held to the
+same rule."""
 
 import ast
 import os
@@ -16,7 +17,9 @@ _PORT = os.path.join(_REPO, "src", "repro_torch")
 
 
 def _sources():
-    paths = [os.path.join(_REPO, "chip_smoke.py")]
+    paths = [os.path.join(_REPO, "chip_smoke.py"),
+             os.path.join(_REPO, "examples",
+                          "torch_constant_trace_scaling.py")]
     for root, _dirs, files in os.walk(_PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -64,7 +67,8 @@ def test_recorder_import_leaves_jax_unloaded():
             "repro_torch.distributed.sharding, repro_torch.core.comm, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
             "repro_torch.train, repro_torch.launch.steps, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.core.baselines, "
+            "repro_torch.workloads; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(_REPO, "src"))
