@@ -87,6 +87,18 @@ csrc`` and then runs, in order:
                 ``"torch"``; then a mamba2 prefill of 4 prompts of 2,053
                 tokens (a prime: Q 1), kernel path against plain path, with
                 its peak memory;
+9b. serve_moe_mla_vlm -- the same for deepseek-moe-16b (full depth, 28
+                layers: one dense, then 64 routed experts top-6 and 2
+                shared), deepseek-v2-lite-16b (full depth, 27 layers: MLA
+                and MoE) and llava-next-34b (16 of 60 layers, 2,880 seeded
+                patch embeddings before the 1,024 tokens of each prompt,
+                GQA group 7); MoE's plain run is held with the kernel
+                path's routing replayed and prints the routing flips of
+                each MoE layer, freely routed and replayed; MLA has no
+                plain run (its attention is the plain path whatever
+                ``attn_impl`` says; its one kernel, RMSNorm on the latent,
+                is held in the kernels phase at (4, 1,024, 512) and (4, 1,
+                512)); f32 at 4 layers for MoE and the VLM;
 10. train    -- the training workload: mamba2-370m at its published
                 widths and depth (48 layers), bf16 compute with f32 master
                 weights and moments, block remat, 4 x 1,024 synthetic
@@ -106,7 +118,11 @@ csrc`` and then runs, in order:
                 (2e-2 at 48, where f32 rounding alone moves some leaves
                 by 7e-3); then
                 qwen1.5-0.5b (all 24 layers, bf16) for flash attention's
-                gradient: the same guard and loss check and 2 steps.  It
+                gradient: the same guard and loss check and 2 steps; then
+                deepseek-moe-16b at full width, 3 layers (one dense, two
+                MoE): the same guard (the router's and every expert's
+                gradient finite and non-zero) and a ``Trainer``'s 2 steps,
+                loss, aux and gradient norm finite, aux above 0.  It
                 prints step time, tokens/s, device busy and idle share,
                 peak memory, checkpoint seconds and bytes and the trace's
                 records and bytes beside the card's name and power limit;
@@ -152,6 +168,7 @@ CUDA card, or without the rest of the repository beside it, it fails.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -185,9 +202,15 @@ BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, same
 # error of the prefill logits, kernel path against plain path.
 SERVE_BATCH, SERVE_NEW = 4, 32
 # ``f32_rtol``, where set, bounds the same comparison with f32 weights and
-# activations at the same width and depth.
+# activations at the same width and ``f32_layers`` layers (the serve run's
+# depth when None).  ``plain`` is None where ``attn_impl`` switches no
+# kernel of the model.  A MoE model's plain path is held with the kernel
+# path's routing replayed (``RouteLog``); its own routing is compared and
+# its flips counted.  A VLM's prompt is its ``n_patches`` patch embeddings
+# and then ``prompt`` tokens.
 ServeSpec = collections.namedtuple(
-    "ServeSpec", "arch layers of prompt max_seq plain rtol f32_rtol")
+    "ServeSpec", "arch layers of prompt max_seq plain rtol f32_rtol "
+    "f32_layers", defaults=(None,))
 SERVE_SPECS = (
     # 16 of 64 layers (one stage of four), to leave room for the plain
     # run.  The paths differ by the bf16 rounding of p in every attention,
@@ -207,6 +230,22 @@ SERVE_SPECS = (
               {"attn_impl": "torch", "ssm_impl": "torch"}, 2e-3 * 48, 1e-3),
     ServeSpec("hymba-1.5b", 32, 32, 2048, 4096,
               {"attn_impl": "torch", "ssm_impl": "torch"}, 3e-3 * 32, 1e-3),
+    # full depth (one dense layer, 27 MoE).  With the routing replayed the
+    # paths differ by flash's bf16 rounding of p alone, as qwen3's do:
+    # qwen3's bound a layer (5e-2 / 16, three times its reading of 1.0e-3
+    # a layer) times 28 layers.  In f32 at 4 layers the paths agree to f32
+    # rounding, held to the SSM runs' f32 bound
+    ServeSpec("deepseek-moe-16b", 28, 28, 1024, 2048, {"attn_impl": "torch"},
+              5e-2 / 16 * 28, 1e-3, 4),
+    # full depth; MLA's attention is the plain chunked path whatever
+    # attn_impl says (the reference's routing), so there is no plain run:
+    # its one kernel, RMSNorm on the latent, is held in the kernels phase
+    ServeSpec("deepseek-v2-lite-16b", 27, 27, 1024, 2048, None, None, None),
+    # 16 of 60 layers, to leave room for the plain run (about 20 GB of
+    # weights); 2,880 patches + 1,024 tokens a prompt.  qwen3's bound a
+    # layer times 16 layers; f32 at 4 layers as above
+    ServeSpec("llava-next-34b", 16, 60, 1024, 4096, {"attn_impl": "torch"},
+              5e-2, 1e-3, 4),
 )
 SERVE_ARCH = SERVE_SPECS[0].arch   # rows 8 and 9 are measured at its shapes
 SSD_ARCH = SERVE_SPECS[1].arch     # row 10 at mamba2's
@@ -369,7 +408,7 @@ def phase_build(build) -> float:
     return secs
 
 
-def phase_kernels(k, ssm_calls: dict) -> dict:
+def phase_kernels(k, serve_calls: dict) -> dict:
     """Every kernel against its plain version; returns the SSD memory
     checks by prompt length."""
     dev = torch.device("cuda")
@@ -524,7 +563,7 @@ def phase_kernels(k, ssm_calls: dict) -> dict:
                 require(int(codes.max()) >= 1 << 31,
                         f"digram_codes n={n}: no code passed 2^31")
         log(f"delta_zigzag_varint, histogram, digram_codes exact at n={n}")
-    return model_kernels(k, ssm_calls)
+    return model_kernels(k, serve_calls)
 
 
 def randn(shape, seed: int, dtype: torch.dtype) -> torch.Tensor:
@@ -547,29 +586,49 @@ def close_err(got: torch.Tensor, want: torch.Tensor, what: str,
     return float((g - w).abs().max()) if g.numel() else 0.0
 
 
-def ssm_serve_kernel_calls(s) -> dict:
-    """The flash-attention and RMSNorm calls of the SSM serve runs, from
-    their configurations: the prefill's attention (q shape, KV heads,
-    window; causal) and the SSD gate norm's input in the prefill (B, S,
-    nh, hd) and in decode (B, nh, hd)."""
+def serve_kernel_calls(s) -> dict:
+    """The flash-attention and RMSNorm calls of the serve runs after
+    qwen3's, from their configurations: the prefill's attention (q shape,
+    KV heads, window; causal) where it takes the flash kernel (not SSM,
+    not MLA; a VLM's prompt holds its patches); the SSD gate norm's input
+    in the prefill (B, S, nh, hd) and in decode (B, nh, hd); MLA's latent
+    norm's input, a column slice of the down-projection made contiguous,
+    in the prefill (B, S, kv_lora_rank) and in decode (B, 1,
+    kv_lora_rank)."""
     calls = {"flash_attention": [], "rmsnorm": []}
     for spec in SERVE_SPECS[1:]:
         cfg = s.get_config(spec.arch)
-        if cfg.family != "ssm":
+        n_pos = spec.prompt + (cfg.n_patches if cfg.family == "vlm" else 0)
+        if cfg.family != "ssm" and not cfg.mla:
             calls["flash_attention"].append(
-                ((SERVE_BATCH, spec.prompt, cfg.n_heads, cfg.hd),
+                ((SERVE_BATCH, n_pos, cfg.n_heads, cfg.hd),
                  cfg.n_kv_heads, cfg.sliding_window))
-        calls["rmsnorm"] += [
-            ((SERVE_BATCH, spec.prompt, cfg.ssm_heads, cfg.ssm_head_dim),),
-            ((SERVE_BATCH, cfg.ssm_heads, cfg.ssm_head_dim),)]
+        if cfg.family == "ssm" or cfg.hybrid:
+            calls["rmsnorm"] += [
+                ((SERVE_BATCH, n_pos, cfg.ssm_heads, cfg.ssm_head_dim),),
+                ((SERVE_BATCH, cfg.ssm_heads, cfg.ssm_head_dim),)]
+        if cfg.mla:
+            calls["rmsnorm"] += [((SERVE_BATCH, n_pos, cfg.kv_lora_rank),),
+                                 ((SERVE_BATCH, 1, cfg.kv_lora_rank),)]
     return calls
 
 
-def model_kernels(k, ssm_calls: dict) -> dict:
+def flash_check(k, q, kk, v, window: int, what: str) -> float:
+    """Flash attention against its plain version, one sequence of the
+    batch at a time (the plain version's f32 scores of a 3,904-token
+    prompt take 3.4 GB a sequence at 56 heads)."""
+    got = k.fa.flash_attention(q, kk, v, window=window)
+    return max(close_err(got[b:b + 1], k.fa_ref.flash_attention_ref(
+        q[b:b + 1], kk[b:b + 1], v[b:b + 1], window=window), what)
+        for b in range(q.shape[0]))
+
+
+def model_kernels(k, serve_calls: dict) -> dict:
     """Flash attention and RMSNorm against their plain versions: bf16 and
     f32, GQA groups 1 and 8, causal, non-causal and windowed masks, prime
     and ragged lengths, every supported head dim, the serve shapes (the
-    SSM serve runs' from ``ssm_calls``)."""
+    later serve runs' from ``serve_calls``: GQA group 7 and 3,904 keys of
+    llava-next-34b, RMSNorm at MLA's D 512)."""
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for S, H, KVH, D in ((1, 8, 1, 128), (37, 8, 8, 16), (131, 8, 1, 32),
@@ -608,28 +667,27 @@ def model_kernels(k, ssm_calls: dict) -> dict:
     log(f"flash_attention at the serve prefill shape (4, 1024, 64, 128) "
         f"bf16 causal: max abs error {err:.3g}")
     for dtype in (torch.float32, torch.bfloat16):
-        for (B, S, H, D), kvh, window in ssm_calls["flash_attention"]:
+        for (B, S, H, D), kvh, window in serve_calls["flash_attention"]:
             q = randn((B, S, H, D), 41, dtype)
             kk = randn((B, S, kvh, D), 42, dtype)
             v = randn((B, S, kvh, D), 43, dtype)
-            what = (f"flash_attention at the SSM serve shape q "
-                    f"{(B, S, H, D)}, {kvh} KV heads, causal, window "
-                    f"{window}, {dtype}")
-            err = close_err(k.fa.flash_attention(q, kk, v, window=window),
-                            k.fa_ref.flash_attention_ref(q, kk, v,
-                                                         window=window),
-                            what)
+            what = (f"flash_attention at the serve shape q {(B, S, H, D)}, "
+                    f"{kvh} KV heads, causal, window {window}, {dtype}")
+            err = flash_check(k, q, kk, v, window, what)
             del q, kk, v
             log(f"{what}: max abs error {err:.3g}")
-        for (shape,) in ssm_calls["rmsnorm"]:
-            x = randn(shape, 44, dtype)
+        for (shape,) in serve_calls["rmsnorm"]:
+            # the last dim doubled and sliced, as MLA slices the latent
+            # off its down-projection, then made contiguous
+            x = randn(shape[:-1] + (2 * shape[-1],), 44, dtype)
+            x = x[..., :shape[-1]].contiguous()
             w = torch.rand(shape[-1], generator=torch.Generator(
                 device="cuda").manual_seed(1), device="cuda")
             err = close_err(k.rn.rmsnorm(x, w, eps=1e-5),
                             k.rn_ref.rmsnorm_ref(x, w, eps=1e-5),
                             f"rmsnorm {shape} {dtype}")
-            log(f"rmsnorm at the SSM serve gate-norm shape {shape} {dtype}: "
-                f"max abs error {err:.3g}")
+            log(f"rmsnorm at the serve shape {shape} {dtype}: max abs "
+                f"error {err:.3g}")
     torch.cuda.empty_cache()
     function_grad_checks(k)
     torch.cuda.empty_cache()
@@ -946,9 +1004,13 @@ def run_ior(p, trace_dir: str, topology: str, backend: str,
             f"rank 0 recorded {stats[0].n_records} calls")
 
 
-def device_busy_ms(prof) -> float:
-    """Device time (kernels and copies) a CUDA-only profile recorded."""
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+def device_busy_ms(prof, events=None) -> float:
+    """Device time (kernels and copies) a CUDA-only profile recorded;
+    ``events``, where given, is its ``key_averages()`` already taken (a
+    serve run's profile holds 10^5 events, and each call sorts them
+    again)."""
+    events = prof.key_averages() if events is None else events
+    return sum(e.self_device_time_total for e in events) / 1e3
 
 
 def counts_since(build, before: dict) -> dict:
@@ -1407,13 +1469,103 @@ def to_device(tree, device):
 
 def serve_launches(cfg, n_new: int) -> dict:
     """Model-kernel launches a generate of ``n_new`` tokens must make: one
-    flash_attention per attention layer of the prefill, one ssd_scan per
-    SSD layer of the prefill, and per layer and token two rmsnorm for
-    QK-norm and one for the SSD gate norm."""
+    flash_attention per attention layer of the prefill (MoE's first dense
+    layer included; none for MLA, whose attention is the plain chunked
+    path), one ssd_scan per SSD layer of the prefill, and per layer and
+    token two rmsnorm for QK-norm, one for the SSD gate norm and one for
+    MLA's latent norm (the prefill's cache takes the attention's own
+    projection, so a prefill norms the latent once a layer, as each decode
+    step does)."""
     ssd = cfg.family == "ssm" or cfg.hybrid
-    return {"flash_attention": cfg.n_layers if cfg.family != "ssm" else 0,
+    flash = cfg.family != "ssm" and not cfg.mla
+    return {"flash_attention": cfg.n_layers if flash else 0,
             "ssd_scan": cfg.n_layers if ssd else 0,
-            "rmsnorm": cfg.n_layers * n_new * (2 * cfg.qk_norm + ssd)}
+            "rmsnorm": cfg.n_layers * n_new * (2 * cfg.qk_norm + ssd
+                                               + cfg.mla)}
+
+
+class RouteLog:
+    """Stands in for ``models.layers.top_k`` while the serve phases run
+    (``main`` installs it).  Outside a ``use`` block it passes through; in
+    ``record`` it keeps each call's experts (one call a MoE layer of a
+    prefill); in ``compare`` it counts, call by call, the tokens whose
+    expert set differs from the recorded one (routing flips); ``replay``
+    counts them too and returns the recorded experts with this run's
+    probabilities at them, so the run routes as the recorded one did."""
+
+    def __init__(self, real):
+        self.real, self.mode = real, None
+        self.routes, self.flips, self.i = [], [], 0
+
+    @contextlib.contextmanager
+    def use(self, mode: str):
+        if mode == "record":
+            self.routes = []
+        self.mode, self.flips, self.i = mode, [], 0
+        try:
+            yield self
+        finally:
+            self.mode = None
+
+    def __call__(self, probs, k):
+        w, idx = self.real(probs, k)
+        if self.mode == "record":
+            self.routes.append(idx)
+        elif self.mode in ("compare", "replay"):
+            ref = self.routes[self.i]
+            self.i += 1
+            self.flips.append(int((idx.sort(-1).values
+                                   != ref.sort(-1).values).any(-1).sum()))
+            if self.mode == "replay":
+                w, idx = probs.gather(-1, ref), ref
+        return w, idx
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).norm() / want.norm())
+
+
+def kernel_vs_plain(s, cfg, plain: dict, params, batch) -> dict:
+    """Prefill logits of the kernel path against the plain path ``plain``
+    selects, on the same weights and prompts: relative L2 ``rel`` (the
+    plain path routing freely) and, for a MoE model, ``rel_replayed``
+    (routing replayed from the kernel path) and the routing flips per MoE
+    layer of both plain runs."""
+    dev = params["embed"].device
+    out = {}
+    with torch.inference_mode():
+        with s.routes.use("record"):
+            lg_kernel, _ = s.get_model(cfg, dev).prefill(params, batch)
+        require(bool(torch.isfinite(lg_kernel).all()),
+                f"serve {cfg.name}: logits not finite")
+        plain_model = s.get_model(cfg.replace(**plain), dev)
+        with s.routes.use("compare") as r:
+            lg_plain, _ = plain_model.prefill(params, batch)
+        out.update(rel=rel_l2(lg_kernel, lg_plain),
+                   max_abs=float((lg_kernel - lg_plain).abs().max()),
+                   max_logit=float(lg_plain.abs().max()))
+        if cfg.is_moe:
+            out["flips"] = r.flips
+            with s.routes.use("replay") as r:
+                lg_replay, _ = plain_model.prefill(params, batch)
+            out["rel_replayed"] = rel_l2(lg_kernel, lg_replay)
+            out["flips_replayed"] = r.flips
+            out["routed_tokens"] = int(np.prod(batch["tokens"].shape))
+    return out
+
+
+def serve_batch(cfg, n: int, prompt: int, seed: int, device) -> dict:
+    """``n`` prompts of ``prompt`` tokens (numpy seed ``seed``); a VLM's
+    ``n_patches`` patch embeddings before them, normal at the token
+    embeddings' scale 0.02, from a generator on ``device`` seeded
+    ``seed``."""
+    batch = {"tokens": np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(n, prompt)).astype(np.int32)}
+    if cfg.family == "vlm":
+        gen = torch.Generator(device=device).manual_seed(seed)
+        batch["patches"] = 0.02 * torch.randn(
+            (n, cfg.n_patches, cfg.d_model), generator=gen, device=device)
+    return batch
 
 
 def phase_serve(s, spec: ServeSpec) -> dict:
@@ -1421,8 +1573,9 @@ def phase_serve(s, spec: ServeSpec) -> dict:
     kernel path: a warm-up, a timed run, then the main path -- launch
     counts set to 0 just before, read just after -- inside a ``session``
     under the profiler.  Then the plain path ``spec.plain`` selects on the
-    same weights and prompts, and the smoke model on the card against the
-    CPU."""
+    same weights and prompts (``kernel_vs_plain``), in bf16 and, where
+    ``spec.f32_rtol`` is set, in f32, and the smoke model on the card
+    against the CPU."""
     from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda")
     cfg = s.get_config(spec.arch).replace(n_layers=spec.layers)
@@ -1444,13 +1597,14 @@ def phase_serve(s, spec: ServeSpec) -> dict:
         f"{n_bytes} B, initialised in {time.monotonic() - t:.2f} s")
     res = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
            "param_bytes": n_bytes}
-    batch = {"tokens": np.random.RandomState(0).randint(
-        0, cfg.vocab_size, size=(SERVE_BATCH, spec.prompt)).astype(np.int32)}
+    batch = serve_batch(cfg, SERVE_BATCH, spec.prompt, 0, dev)
+    n_pos = s.prompt_len(cfg, batch)
     eng = s.ServeEngine(cfg, params, max_seq=spec.max_seq, device=dev)
     if cfg.family != "ssm" and not cfg.sliding_window:
-        # a dense KV cache holds max_seq positions: a request whose last
-        # step would write past them is refused before any kernel launch
-        over = spec.max_seq - spec.prompt + 2
+        # a dense KV or latent cache holds max_seq positions: a request
+        # whose last step would write past them is refused before any
+        # kernel launch (a VLM's prompt counts its patches)
+        over = spec.max_seq - n_pos + 2
         torch.cuda.synchronize()
         s.build.reset_launches()
         refused = None
@@ -1460,14 +1614,14 @@ def phase_serve(s, spec: ServeSpec) -> dict:
             refused = str(e)
         torch.cuda.synchronize()
         require(refused is not None,
-                f"serve {cfg.name}: {spec.prompt} + {over} tokens past "
+                f"serve {cfg.name}: {n_pos} + {over} positions past "
                 f"max_seq {spec.max_seq} were not refused")
         require(s.build.launch_counts() == {} and eng.stats == {},
                 f"serve {cfg.name}: the refused request launched "
                 f"{s.build.launch_counts()}")
         res["overrun_refused"] = True
-        log(f"serve {cfg.name}: {spec.prompt} prompt + {over} new tokens "
-            f"past max_seq {spec.max_seq} refused before any kernel "
+        log(f"serve {cfg.name}: a prompt of {n_pos} positions + {over} new "
+            f"tokens past max_seq {spec.max_seq} refused before any kernel "
             f"launch: {refused}")
     eng.generate(batch, 2)                 # warm-up: cuBLAS, first loads
     toks = eng.generate(batch, SERVE_NEW)  # timed, neither traced nor profiled
@@ -1480,7 +1634,7 @@ def phase_serve(s, spec: ServeSpec) -> dict:
                 "decode_tokens_per_s": SERVE_BATCH * st["decode_steps"]
                 / st["decode_s"]})
     log(f"serve {cfg.name} (kernel path): prefill of {SERVE_BATCH} x "
-        f"{spec.prompt} tokens {res['prefill_ms']:.2f} ms, decode "
+        f"{n_pos} positions {res['prefill_ms']:.2f} ms, decode "
         f"{res['decode_ms_per_step']:.3f} ms per step of {SERVE_BATCH} "
         f"tokens, {res['tokens_per_s']:.1f} "
         f"tokens/s over {n_tok} generated ({res['decode_tokens_per_s']:.1f} "
@@ -1500,10 +1654,11 @@ def phase_serve(s, spec: ServeSpec) -> dict:
     launches = s.build.launch_counts()
     res["launches"] = launches
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
-    busy = device_busy_ms(prof)
+    events = prof.key_averages()
+    busy = device_busy_ms(prof, events)
     res["traced_s"], res["busy_ms"] = secs, busy
     res["idle_share"] = 1 - busy / (secs * 1e3)
-    top = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
+    top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
     res["top_kernels"] = [[e.key[:70], e.self_device_time_total / 1e3,
                            e.count] for e in top]
@@ -1511,7 +1666,7 @@ def phase_serve(s, spec: ServeSpec) -> dict:
     # (which may miss some launches) must show each kernel of a model
     # kernel that ran, and none of one that did not
     want = serve_launches(cfg, SERVE_NEW)
-    seen = {name: sum(e.count for e in prof.key_averages() if name in e.key)
+    seen = {name: sum(e.count for e in events if name in e.key)
             for name in FA_KERNELS + SSD_KERNELS}
     res["profiled_kernels"] = seen
     for kernels, model_kernel in ((FA_KERNELS, "flash_attention"),
@@ -1550,58 +1705,81 @@ def phase_serve(s, spec: ServeSpec) -> dict:
         f" model kernel launches as the structure implies: "
         f"{serve_launches(cfg, SERVE_NEW)}")
 
-    with torch.inference_mode():
-        lg_kernel, _ = s.get_model(cfg, dev).prefill(params, batch)
+    if spec.plain is None:
+        with torch.inference_mode():
+            lg, _ = s.get_model(cfg, dev).prefill(params, batch)
+        require(bool(torch.isfinite(lg).all()),
+                f"serve {cfg.name}: logits not finite")
+        log(f"serve {cfg.name}: prefill logits finite (max |logit| "
+            f"{float(lg.abs().max()):.3g}); no plain run: attn_impl "
+            f"switches no kernel of this model, and its RMSNorm calls are "
+            f"held against the plain version in the kernels phase")
+        del params, eng, flat, lg
+        torch.cuda.empty_cache()
+    else:
+        cmp = kernel_vs_plain(s, cfg, spec.plain, params, batch)
+        res["logits_rel_err"] = cmp["rel"]
+        res["logits_max_abs_err"] = cmp["max_abs"]
+        held = "rel_replayed" if cfg.is_moe else "rel"
+        require(cmp[held] <= spec.rtol,
+                f"serve {cfg.name}: prefill logits of the kernel and plain "
+                f"paths differ by {cmp[held]:.3g} (relative L2, {held}), "
+                f"over {spec.rtol}")
         tcfg = cfg.replace(**spec.plain)
-        lg_plain, _ = s.get_model(tcfg, dev).prefill(params, batch)
-    require(bool(torch.isfinite(lg_kernel).all()), "serve: logits not finite")
-    rel = float((lg_kernel - lg_plain).norm() / lg_plain.norm())
-    res["logits_rel_err"] = rel
-    res["logits_max_abs_err"] = float((lg_kernel - lg_plain).abs().max())
-    require(rel <= spec.rtol,
-            f"serve {cfg.name}: prefill logits of the kernel and plain "
-            f"paths differ by {rel:.3g} (relative L2), over {spec.rtol}")
-    eng_t = s.ServeEngine(tcfg, params, max_seq=spec.max_seq, device=dev)
-    toks_t = eng_t.generate(batch, SERVE_NEW)
-    res["plain_prefill_ms"] = eng_t.stats["prefill_s"] * 1e3
-    res["plain_decode_ms_per_step"] = (eng_t.stats["decode_s"] * 1e3
-                                       / eng_t.stats["decode_steps"])
-    same = toks == toks_t
-    prefix = [int(np.argmin(row)) if not row.all() else SERVE_NEW
-              for row in same]
-    res["tokens_agree"] = int(same.sum())
-    log(f"serve {cfg.name}: prefill logits kernel vs plain path "
-        f"({spec.plain}): relative L2 {rel:.3g} (limit {spec.rtol}), max abs "
-        f"{res['logits_max_abs_err']:.3g}, max |logit| "
-        f"{float(lg_plain.abs().max()):.3g}; generated tokens that agree: "
-        f"{res['tokens_agree']} of {n_tok}, common prefix per sequence "
-        f"{prefix}; plain path prefill {res['plain_prefill_ms']:.2f} ms, "
-        f"decode {res['plain_decode_ms_per_step']:.3f} ms per step")
-    del params, eng, eng_t, flat, lg_kernel, lg_plain
-    torch.cuda.empty_cache()
+        eng_t = s.ServeEngine(tcfg, params, max_seq=spec.max_seq, device=dev)
+        toks_t = eng_t.generate(batch, SERVE_NEW)
+        res["plain_prefill_ms"] = eng_t.stats["prefill_s"] * 1e3
+        res["plain_decode_ms_per_step"] = (eng_t.stats["decode_s"] * 1e3
+                                           / eng_t.stats["decode_steps"])
+        same = toks == toks_t
+        prefix = [int(np.argmin(row)) if not row.all() else SERVE_NEW
+                  for row in same]
+        res["tokens_agree"] = int(same.sum())
+        if cfg.is_moe:
+            res.update({k: cmp[k] for k in ("rel_replayed", "flips",
+                                             "flips_replayed")})
+            log(f"serve {cfg.name}: routing flips per MoE layer of the "
+                f"prefill (tokens of {cmp['routed_tokens']} whose top-"
+                f"{cfg.moe_top_k} experts differ), plain path routing "
+                f"freely: {cmp['flips']}; with the kernel path's routing "
+                f"replayed (the flips its own routing would make): "
+                f"{cmp['flips_replayed']}; logits relative L2 with the "
+                f"routing replayed {cmp['rel_replayed']:.3g} (limit "
+                f"{spec.rtol})")
+        log(f"serve {cfg.name}: prefill logits kernel vs plain path "
+            f"({spec.plain}): relative L2 {cmp['rel']:.3g}"
+            f"{'' if cfg.is_moe else f' (limit {spec.rtol})'}, max abs "
+            f"{cmp['max_abs']:.3g}, max |logit| {cmp['max_logit']:.3g}; "
+            f"generated tokens that agree: {res['tokens_agree']} of "
+            f"{n_tok}, common prefix per sequence {prefix}; plain path "
+            f"prefill {res['plain_prefill_ms']:.2f} ms, decode "
+            f"{res['plain_decode_ms_per_step']:.3f} ms per step")
+        del params, eng, eng_t, flat
+        torch.cuda.empty_cache()
     if spec.f32_rtol is not None:
-        c32 = cfg.replace(dtype="float32", param_dtype="float32")
+        c32 = cfg.replace(dtype="float32", param_dtype="float32",
+                          n_layers=spec.f32_layers or cfg.n_layers)
         p32 = s.get_model(c32, dev).init_params(
             torch.Generator(device=dev).manual_seed(0))
-        with torch.inference_mode():
-            lg_kernel, _ = s.get_model(c32, dev).prefill(p32, batch)
-            lg_plain, _ = s.get_model(c32.replace(**spec.plain),
-                                      dev).prefill(p32, batch)
-        rel = float((lg_kernel - lg_plain).norm() / lg_plain.norm())
-        res["f32_logits_rel_err"] = rel
-        require(rel <= spec.f32_rtol,
-                f"serve {cfg.name} in f32: prefill logits of the kernel and "
-                f"plain paths differ by {rel:.3g}, over {spec.f32_rtol}")
-        log(f"serve {cfg.name} in f32 at the same width and depth: prefill "
-            f"logits kernel vs plain path, relative L2 {rel:.3g} (limit "
-            f"{spec.f32_rtol})")
-        del p32, lg_kernel, lg_plain
+        cmp = kernel_vs_plain(s, c32, spec.plain, p32, batch)
+        held = "rel_replayed" if cfg.is_moe else "rel"
+        res["f32_logits_rel_err"] = cmp[held]
+        res["f32_layers"] = c32.n_layers
+        require(cmp[held] <= spec.f32_rtol,
+                f"serve {cfg.name} in f32 x {c32.n_layers}: prefill logits "
+                f"of the kernel and plain paths differ by {cmp[held]:.3g}, "
+                f"over {spec.f32_rtol}")
+        log(f"serve {cfg.name} in f32 at the same width, {c32.n_layers} "
+            f"layers: prefill logits kernel vs plain path, relative L2 "
+            f"{cmp[held]:.3g} ({held}; limit {spec.f32_rtol})" + (
+                f"; free routing {cmp['rel']:.3g}, flips {cmp['flips']}, "
+                f"replayed {cmp['flips_replayed']}" if cfg.is_moe else ""))
+        del p32
         torch.cuda.empty_cache()
 
     scfg = s.get_smoke_config(spec.arch)
     sp = s.get_model(scfg, "cpu").init_params(torch.Generator().manual_seed(0))
-    sb = {"tokens": np.random.RandomState(0).randint(
-        0, scfg.vocab_size, size=(2, 37)).astype(np.int32)}
+    sb = serve_batch(scfg, 2, 37, 0, "cpu")
     want, _ = s.get_model(scfg, "cpu").prefill(sp, sb)
     got, _ = s.get_model(scfg, dev).prefill(to_device(sp, dev), sb)
     err = float((got.cpu() - want).abs().max())
@@ -1903,8 +2081,9 @@ def phase_train(s) -> dict:
         second.state, _ = step_fn(second.state, batch)
         torch.cuda.synchronize()
         prof_s = time.monotonic() - t
-    busy = device_busy_ms(prof)
-    top = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
+    events = prof.key_averages()
+    busy = device_busy_ms(prof, events)
+    top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
     del first, second
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1945,6 +2124,7 @@ def phase_train(s) -> dict:
         s.k.ssd_ref.ssd_scan_chunked_ref,
         ssd_inputs(*ssd_shape, torch.bfloat16, 71))
     res["dense"] = dense_train(s)
+    res["moe"] = moe_train(s)
     res["flash_backward_ms"] = backward_ms(
         s.k, s.k.fa.flash_attention, s.k.fa_ref.flash_attention_ref,
         res["dense"].pop("qkv"))
@@ -2044,6 +2224,68 @@ def dense_train(s) -> dict:
                              torch.bfloat16)
                        for i, h in enumerate((cfg.n_heads, cfg.n_kv_heads,
                                               cfg.n_kv_heads)))
+    return res
+
+
+# deepseek-moe-16b at full width, cut to its first dense layer and two MoE
+# layers (about 1.68e9 parameters, 20 GB of f32 master and moments)
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = "deepseek-moe-16b", 3, 2
+
+
+def moe_train(s) -> dict:
+    """deepseek-moe-16b at full width, MOE_TRAIN_LAYERS layers, bf16: step
+    1's gradients and loss on the kernel path (``kernel_path_grads``: every
+    leaf's gradient finite and non-zero, the router's and the experts'
+    included), then a ``Trainer`` takes MOE_TRAIN_STEPS steps, launches
+    counted: loss, aux and gradient norm finite, aux above 0."""
+    dev = torch.device("cuda")
+    cfg = s.get_config(MOE_TRAIN_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    data = train_data(s, cfg)
+    state = s.adamw_init(s.get_model(cfg, dev).init_params(
+        torch.Generator(device=dev).manual_seed(0)))
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "state_bytes": s.state_nbytes(state),
+           "step1": kernel_path_grads(s, cfg, state, data(0))}
+    del state
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(WORK, "moe_train")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tr = s.Trainer(cfg, s.TrainerConfig(num_steps=MOE_TRAIN_STEPS,
+                                        ckpt_dir=ckpt, ckpt_every=0, seed=0),
+                   s.AdamWConfig(**TRAIN_OCFG), data=data, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    s.build.reset_launches()
+    tr.run()
+    torch.cuda.synchronize()
+    launches = s.build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v for k, v in train_launches(cfg, MOE_TRAIN_STEPS).items()
+            if v}
+    require({k: launches.get(k, 0) for k in want} == want,
+            f"train {cfg.name}: launches {launches}, want {want}")
+    log_ = tr.metrics_log
+    for key in ("loss", "aux", "grad_norm"):
+        vals = [m[key] for m in log_]
+        require(len(vals) == MOE_TRAIN_STEPS and all(np.isfinite(vals)),
+                f"train {cfg.name}: {key} {vals}")
+    require(all(m["aux"] > 0 for m in log_),
+            f"train {cfg.name}: aux {[m['aux'] for m in log_]}")
+    step_s = [m["step_time_s"] for m in log_]
+    res.update({"losses": [m["loss"] for m in log_],
+                "aux": [m["aux"] for m in log_],
+                "grad_norm": [m["grad_norm"] for m in log_],
+                "step_s": step_s, "launches": launches, "peak_bytes": peak,
+                "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / x
+                                 for x in step_s]})
+    log(f"train {cfg.name} x {cfg.n_layers} (1 dense, "
+        f"{cfg.n_layers - cfg.first_k_dense} MoE), bf16, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens: {MOE_TRAIN_STEPS} Trainer steps, losses "
+        f"{res['losses']}, aux {res['aux']}, grad norms {res['grad_norm']}, "
+        f"step s {step_s}, peak {peak} B, state {res['state_bytes']} B, "
+        f"launches {launches}")
+    del tr
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2927,20 +3169,30 @@ class MeasuredCall:
 def model_kernel_report(k, s, shapes: dict, launches: dict,
                         ssd_memory: dict) -> list:
     """Rows of the kernels line for flash attention and RMSNorm at the
-    largest shapes the qwen3-32b serve run gave them (bf16, causal), and
-    for the SSD scan at the mamba2-370m serve prefill's shape (bf16), with
-    the launch counts of those runs' main paths (``launches``: arch ->
-    counts; every run's count is kept in ``launches_by_run``).  The SSD
-    scan's row also carries the prime prefill's shape (Q 1, in groups) and
-    the memory checks of the kernels phase (``ssd_memory``)."""
+    qwen3-32b serve run's prefill shape and largest shape (bf16, causal),
+    and for the SSD scan at the mamba2-370m serve prefill's shape (bf16),
+    with the launch counts of those runs' main paths (``launches``: arch
+    -> counts; every run's count is kept in ``launches_by_run``).  Flash
+    attention's row also carries hymba-1.5b's windowed shape
+    (``other_shape``) and llava-next-34b's (``family_shape``: GQA group 7,
+    3,904 keys); RMSNorm's deepseek-v2-lite-16b's latent norm at D 512
+    (``family_shape``).  The SSD scan's row also carries the prime
+    prefill's shape (Q 1, in groups) and the memory checks of the kernels
+    phase (``ssd_memory``)."""
     import torch.nn.functional as F
 
     def top(name):
         require(bool(shapes.get(name)), f"{name} saw no main-path call")
         return max(shapes[name], key=lambda s: int(np.prod(s)))
 
-    kv_heads = s.get_config(SERVE_ARCH).n_kv_heads
-    B, S, H, D = top("flash_attention")
+    def seen(name, shape, arch):
+        require(tuple(shape) in shapes.get(name, {}),
+                f"{name} saw no call at the {arch} serve shape {shape}")
+
+    qcfg = s.get_config(SERVE_ARCH)
+    kv_heads = qcfg.n_kv_heads
+    B, S, H, D = SERVE_BATCH, SERVE_SPECS[0].prompt, qcfg.n_heads, qcfg.hd
+    seen("flash_attention", (B, S, H, D), SERVE_ARCH)
     bf = torch.bfloat16
     q = randn((B, S, H, D), 21, bf)
     kk = randn((B, S, kv_heads, D), 22, bf)
@@ -2972,6 +3224,37 @@ def model_kernel_report(k, s, shapes: dict, launches: dict,
         k.ssd.ssd_scan, k.ssd_ref.ssd_scan_chunked_ref,
         *ssd_work(pshape, 2), BF16_TENSOR_OPS_PER_S, 5, SSD_TOL_SCALE,
         per_call=-(-pshape[1] // G))
+    # flash attention at llava-next-34b's prefill (patches and tokens),
+    # RMSNorm at deepseek-v2-lite-16b's latent norm in the prefill
+    vlm, mla = "llava-next-34b", "deepseek-v2-lite-16b"
+    vcfg, mcfg = s.get_config(vlm), s.get_config(mla)
+    vS = next(sp for sp in SERVE_SPECS if sp.arch == vlm).prompt \
+        + vcfg.n_patches
+    vq = randn((SERVE_BATCH, vS, vcfg.n_heads, vcfg.hd), 31, bf)
+    vk = randn((SERVE_BATCH, vS, vcfg.n_kv_heads, vcfg.hd), 32, bf)
+    vv = randn((SERVE_BATCH, vS, vcfg.n_kv_heads, vcfg.hd), 33, bf)
+    seen("flash_attention", vq.shape, vlm)
+    mx = randn((SERVE_BATCH, next(sp for sp in SERVE_SPECS if sp.arch == mla)
+                .prompt, mcfg.kv_lora_rank), 34, bf)
+    mw = torch.rand(mx.shape[-1], generator=torch.Generator(
+        device="cuda").manual_seed(36), device="cuda")
+    seen("rmsnorm", mx.shape, mla)
+    family = {
+        "flash_attention": (vlm, MeasuredCall(
+            [list(vq.shape), list(vk.shape)], (vq, vk, vv), {},
+            k.fa.flash_attention, k.fa_ref.flash_attention_ref,
+            2 * (2 * vq.numel() + vk.numel() + vv.numel()),
+            4 * SERVE_BATCH * vcfg.n_heads * vcfg.hd * attention_pairs(
+                vS, True, 0), BF16_TENSOR_OPS_PER_S, 20, 1,
+            lambda: F.scaled_dot_product_attention(
+                vq.transpose(1, 2), vk.transpose(1, 2), vv.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2))),
+        "rmsnorm": (mla, MeasuredCall(
+            [list(mx.shape)], (mx, mw), {"eps": mcfg.norm_eps}, k.rn.rmsnorm,
+            k.rn_ref.rmsnorm_ref, 2 * 2 * mx.numel() + 4 * mw.numel(),
+            4 * mx.numel(), CORE_OPS_PER_S, 200, 1,
+            lambda: F.rms_norm(mx, (mx.shape[-1],), mw.to(bf),
+                               mcfg.norm_eps)))}
     # name: (source, TPU kernel, device kernel names, run of the launches,
     #        the main shape's MeasuredCall, hymba-1.5b's MeasuredCall)
     specs = {
@@ -3035,6 +3318,13 @@ def model_kernel_report(k, s, shapes: dict, launches: dict,
             # the f32 path (the CUDA-core kernel) at both serve shapes
             for arch, call in ((run, main_call), ("hymba-1.5b", other_call)):
                 f32_ms[f"{name} {arch}"] = call.f32_ms()
+        if name in family:
+            arch, call = family[name]
+            row["family_shape"] = {
+                "arch": arch, "launches": launches[arch].get(name, 0),
+                **call.measure(kname, f"{name} at the {arch} serve shape")}
+            log(f"{name} at the {arch} serve shape bf16: "
+                f"{row['family_shape']}")
         if name == "ssd_scan":
             row["prime_shape"] = {
                 "prompt": PRIME_PROMPT, "planned_groups": prime_call.per_call,
@@ -3087,7 +3377,9 @@ def main() -> int:
     from repro_torch.traceserve import QUERY_FAMILIES, TraceService
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import get_model
+    from repro_torch.models import layers as model_layers
     from repro_torch.models.convert import flat_params
+    from repro_torch.models.lm import prompt_len
     from repro_torch.serve import ServeEngine
     from repro_torch.data import SyntheticConfig, synthetic_batch
     from repro_torch.launch.steps import cast_params, make_train_step
@@ -3138,7 +3430,9 @@ def main() -> int:
                           synthetic_batch=synthetic_batch,
                           make_train_step=make_train_step,
                           cast_params=cast_params, tree_map=tree_map,
-                          state_nbytes=state_nbytes, k=k)
+                          state_nbytes=state_nbytes, k=k,
+                          prompt_len=prompt_len,
+                          routes=RouteLog(model_layers.top_k))
     ev = SimpleNamespace(wl=workloads, bl=baselines, eb=eb, recorder=recorder,
                          build=_build, Recorder=recorder.Recorder,
                          RecorderConfig=recorder.RecorderConfig)
@@ -3156,9 +3450,9 @@ def main() -> int:
 
     with Phase("build"):
         build_s = phase_build(_build)
-    ssm_calls = ssm_serve_kernel_calls(srv)
+    serve_calls = serve_kernel_calls(srv)
     with Phase("kernels"):
-        ssd_memory = phase_kernels(k, ssm_calls)
+        ssd_memory = phase_kernels(k, serve_calls)
 
     # the main paths: the tracer's (phases 3-6) and the serving runs of
     # phases 7-8; counts start at 0 just before each and are read just
@@ -3220,7 +3514,7 @@ def main() -> int:
                           (eb, "run_starts", starts_shim),
                           (eb, "digram_histogram", digram_shim),
                           (streaming, "compress_timestamps_blocked",
-                           flush_shim)):
+                           flush_shim), (model_layers, "top_k", srv.routes)):
         originals.append((mod, name, getattr(mod, name)))
         setattr(mod, name, fn)
     _build.reset_launches()
@@ -3243,9 +3537,12 @@ def main() -> int:
         with Phase("serve"):
             serves[SERVE_ARCH] = phase_serve(srv, SERVE_SPECS[0])
         with Phase("serve_ssm"):
-            for spec in SERVE_SPECS[1:]:
+            for spec in SERVE_SPECS[1:3]:
                 serves[spec.arch] = phase_serve(srv, spec)
             prime = prime_prefill(srv, SERVE_SPECS[1])
+        with Phase("serve_moe_mla_vlm"):
+            for spec in SERVE_SPECS[3:]:
+                serves[spec.arch] = phase_serve(srv, spec)
         with Phase("train"):
             train = phase_train(srv)
         with Phase("evaluation"):
@@ -3256,8 +3553,8 @@ def main() -> int:
     serve_counts = {a: r["launches"] for a, r in serves.items()}
     serve_counts[f"{prime['arch']}@{PRIME_PROMPT}"] = prime["launches"]
     serve_counts[f"train {train['arch']}"] = train["launches"]
-    serve_counts[f"train {train['dense']['arch']}"] = train["dense"][
-        "launches"]
+    for run in ("dense", "moe"):
+        serve_counts[f"train {train[run]['arch']}"] = train[run]["launches"]
     log(f"main-path launches, phases 3-6: {launches}; serve runs: "
         f"{serve_counts}")
     for _mod, name in wrappers:
@@ -3300,7 +3597,7 @@ def main() -> int:
         require(bool(runs), f"{name} was not launched on a serve main path")
         log(f"{name} launched in the serve runs of {runs}; shapes: "
             f"{dict(shapes[name].most_common(4))}")
-    for name, calls in ssm_calls.items():
+    for name, calls in serve_calls.items():
         for call in calls:
             require(call[0] in shapes[name],
                     f"{name}: the kernels phase checked {call[0]}, which "

@@ -7,11 +7,16 @@ tokens/s; optionally trace the serving loop with the port's Recorder.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
         --smoke --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-moe-16b --smoke --device cpu
+
 Runs on the card unless ``--device cpu`` is given; without a card and
-without ``--device cpu`` it fails.  The dense, SSM (mamba2-370m) and
-hybrid (hymba-1.5b) families are ported; the others are refused.
+without ``--device cpu`` it fails.  Every decoder-only family is ported
+(dense, MoE, MLA, SSM, hybrid, VLM); the encoder-decoder is refused.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 on the
-chosen device; prompts come from numpy seed 0.
+chosen device; prompts come from numpy seed 0, and then a VLM's
+``n_patches`` patch embeddings a prompt (the vision tower is a stub, as
+in the JAX package), normal at the token embeddings' scale 0.02.
 """
 
 from __future__ import annotations
@@ -34,8 +39,7 @@ from ..serve import ServeEngine
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
-        description="Greedy serving of a dense, SSM or hybrid model with "
-                    "the port")
+        description="Greedy serving of a decoder-only model with the port")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced smoke configuration")
@@ -61,6 +65,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     batch = {"tokens": rng.randint(0, cfg.vocab_size,
                                    size=(args.batch, args.prompt_len)
                                    ).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = (0.02 * rng.randn(
+            args.batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
 
     def run():
         eng = ServeEngine(cfg, params, max_seq=args.max_seq, device=device)

@@ -8,8 +8,9 @@
 
 Runs on the card unless ``--device cpu`` is given; without a card and
 without ``--device cpu`` it fails.  ``--smoke`` selects the reduced
-configuration so the run trains in CPU-minutes.  The dense, SSM
-(mamba2-370m) and hybrid (hymba-1.5b) families are ported; the others are
+configuration so the run trains in CPU-minutes.  Every decoder-only
+family is ported (dense, MoE, MLA, SSM, hybrid, VLM; a VLM trains on the
+text alone, as ``synthetic_batch`` has no patches); the encoder-decoder is
 refused.  Data is ``synthetic_batch``; weights start from a generator
 seeded with 0 on the device, or from the newest checkpoint in
 ``--ckpt-dir`` (default ``repro_train_ckpt`` under the temporary directory,
@@ -36,7 +37,7 @@ from ..train import Trainer, TrainerConfig
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.train",
-        description="Train a dense, SSM or hybrid model with the port")
+        description="Train a decoder-only model with the port")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-trainable)")

@@ -1,5 +1,5 @@
-"""Model API of the port: the dense, SSM and hybrid decoder families, on
-the card by default.
+"""Model API of the port: the decoder-only families (dense, MoE, MLA, SSM,
+hybrid, VLM), on the card by default.
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` bound to one device; its
 entry points take and return tensors on that device.  Without a CUDA card
@@ -15,12 +15,9 @@ import torch
 from .config import ModelConfig
 from . import lm
 
-# the ROADMAP slices that bring the other families
+# the ROADMAP slice that brings the last family
 _NOT_PORTED = (
     (lambda c: c.n_encoder_layers > 0, "encoder-decoder (seamless)"),
-    (lambda c: c.family == "vlm", "the VLM backbone (llava-next)"),
-    (lambda c: c.mla, "MLA (deepseek-v2-lite)"),
-    (lambda c: c.is_moe, "MoE (deepseek-moe)"),
 )
 
 
@@ -37,8 +34,8 @@ def model_device(device) -> torch.device:
 
 
 class ModelAPI:
-    """init / forward / loss / prefill / decode of the dense, SSM and
-    hybrid families on one device."""
+    """init / forward / loss / prefill / decode of the decoder-only
+    families on one device."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         for refused, family in _NOT_PORTED:

@@ -7,7 +7,9 @@ stacked per-layer leaves under ``"layers"`` (leading axis = layer) become
 a list of per-layer dicts.  So ``tree["layers"]["attn"]["wq"][3]`` is the
 port's ``params["layers"][3]["attn"]["wq"]``, named ``layers.3.attn.wq``
 by :func:`flat_params`.  Dense weights keep their ``(d_in, d_out)``
-layout.
+layout, expert weights their ``(E, d_in, d_out)``.  A MoE model's first
+dense layers (``first_0``, ...) are not stacked there and stay as they
+are; the stack holds the other layers.
 
 bfloat16 leaves arrive as numpy arrays of ``ml_dtypes.bfloat16``; they
 are recognised by dtype name and carried bit for bit through a uint16
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .lm import layer_kinds
 
 
 def tensor_from_numpy(a, device, dtype: Optional[torch.dtype] = None
@@ -77,7 +80,7 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device,
     out = {k: _convert(v, device, dtype) for k, v in tree.items()
            if k != "layers"}
     if "layers" in tree:
-        layers = _split_layers(tree["layers"], cfg.n_layers)
+        layers = _split_layers(tree["layers"], layer_kinds(cfg)[2])
         out["layers"] = [_convert(lp, device, dtype) for lp in layers]
     return out
 

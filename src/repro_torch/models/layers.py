@@ -1,9 +1,12 @@
-"""Transformer building blocks of the dense decoder family, in PyTorch.
+"""Transformer building blocks of the decoder families, in PyTorch.
 
-The counterpart of the JAX package's ``models/layers.py`` for GQA
-attention, norms, RoPE and the MLP.  Parameters are plain dictionaries of
-tensors with the JAX package's names and layouts: a dense weight is
-``(d_in, d_out)`` and is applied as ``x @ w``.
+The counterpart of the JAX package's ``models/layers.py``: GQA attention,
+MLA (DeepSeek-V2's latent attention), norms, RoPE, the MLP and the MoE
+layer (top-k routing, capacity dispatch, batched expert FFNs; the local
+``ep=1`` path, as the JAX package runs it without a mesh).  Parameters
+are plain dictionaries of tensors with the JAX package's names and
+layouts: a dense weight is ``(d_in, d_out)`` and is applied as ``x @ w``;
+expert weights are ``(E, d_in, d_out)``.
 
 Two attention paths, selected by ``cfg.attn_impl`` as ``layers.py:348``
 does in the JAX package:
@@ -17,9 +20,13 @@ does in the JAX package:
 
 The two differ by bf16 rounding: the kernel keeps p in f32 for p @ v, the
 chunked path rounds p to the value dtype first, as the XLA path does.
-QK-norm (``rms_norm_head``) always goes through the RMSNorm op
-(``kernels.rmsnorm``).  Decode attention stays plain PyTorch, as the JAX
-package runs it in XLA.  There is no mesh: sharding constraints are
+QK-norm and MLA's latent norm (``rms_norm_head``) always go through the
+RMSNorm op (``kernels.rmsnorm``).  MLA's prefill attention (q/k head dim
+``qk_nope_dim + qk_rope_dim``, v head dim ``v_head_dim``) always takes
+:func:`flash_attention_torch`, as the JAX package routes it through
+``flash_attention_xla`` whatever ``attn_impl`` says (``layers.py:435``).
+Decode attention and the MoE products stay plain PyTorch, as the JAX
+package runs them in XLA.  There is no mesh: sharding constraints are
 identities on one device.
 """
 
@@ -345,6 +352,110 @@ def kv_cache_init(cfg: ModelConfig, batch: int, seq: int, dtype, device
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d = cfg.d_model
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
+        cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    dt = torch_dtype(cfg.param_dtype)
+    return {
+        "w_q": dense_init(gen, d, H * (dn + dr), dt),
+        "w_dkv": dense_init(gen, d, r + dr, dt),    # latent + shared rope key
+        "w_uk": dense_init(gen, r, H * dn, dt),     # latent -> k_nope
+        "w_uv": dense_init(gen, r, H * dv, dt),     # latent -> v
+        "kv_norm": torch.ones(r, dtype=torch.float32, device=gen.device),
+        "wo": dense_init(gen, H * dv, d, dt),
+    }
+
+
+def _mla_qc(p: Params, cfg: ModelConfig, x: torch.Tensor,
+            positions: torch.Tensor):
+    """(q_nope, q_rope, c, k_rope): the queries split at ``qk_nope_dim``,
+    the normed latent c (B, S, kv_lora_rank) and the shared rope key
+    (B, S, qk_rope_dim)."""
+    B, S, _ = x.shape
+    H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    r = cfg.kv_lora_rank
+    q = (x @ p["w_q"].to(x.dtype)).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope_rotate(q_rope, positions, cfg.rope_theta)
+    ckv = x @ p["w_dkv"].to(x.dtype)
+    c, k_rope = ckv[..., :r], ckv[..., r:]
+    c = rms_norm_head(c, p["kv_norm"], cfg.norm_eps)
+    k_rope = rope_rotate(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, c, k_rope[:, :, 0, :]
+
+
+def mla_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor,
+              lat: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """Training/prefill MLA: expand the latent to per-head K/V, chunked
+    attention.  When ``lat`` is a dict, the latent ``c`` and rope key
+    ``kr`` are left in it, so that a prefill fills its cache from this one
+    projection (the JAX package projects twice; the values are the
+    same)."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
+        cfg.v_head_dim
+    q_nope, q_rope, c, k_rope = _mla_qc(p, cfg, x, positions)
+    if lat is not None:
+        lat["c"], lat["kr"] = c, k_rope
+    k_nope = (c @ p["w_uk"].to(x.dtype)).reshape(B, S, H, dn)
+    v = (c @ p["w_uv"].to(x.dtype)).reshape(B, S, H, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
+                  dim=-1)
+    out = flash_attention_torch(q, k, v, causal=cfg.causal,
+                                q_chunk=cfg.attn_q_chunk,
+                                kv_chunk=cfg.attn_kv_chunk)
+    return out.reshape(B, S, H * dv) @ p["wo"].to(x.dtype)
+
+
+def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
+               pos: torch.Tensor, pos0: int) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed-matmul latent decode: the cache stores (c, k_rope) only.
+    Scores in f32 over the whole cache, positions past ``pos0`` masked.
+    The cache is updated in place at slot ``pos0``."""
+    B = x.shape[0]
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
+        cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    q_nope, q_rope, c_new, kr_new = _mla_qc(p, cfg, x, pos[:, None])
+    c_cache, kr_cache = cache["c"], cache["kr"]
+    S = c_cache.shape[1]
+    c_cache[:, pos0] = c_new[:, 0].to(c_cache.dtype)
+    kr_cache[:, pos0] = kr_new[:, 0].to(kr_cache.dtype)
+    w_uk = p["w_uk"].to(x.dtype).reshape(r, H, dn)
+    # absorb: q_lat[b,h,r] = q_nope[b,h,dn] . w_uk[r,h,dn]
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
+    cf = c_cache.float()
+    s = torch.einsum("bhr,bsr->bhs", q_lat.float(), cf)
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                         kr_cache.float())
+    s = s * (1.0 / math.sqrt(dn + dr))
+    valid = torch.arange(S, device=x.device) <= pos0
+    s = torch.where(valid, s, float("-inf"))
+    pr = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", pr, cf)
+    w_uv = p["w_uv"].to(x.dtype).reshape(r, H, dv)
+    out = torch.einsum("bhr,rhd->bhd", o_lat.to(x.dtype), w_uv)
+    y = out.reshape(B, 1, H * dv) @ p["wo"].to(x.dtype)
+    return y, {"c": c_cache, "kr": kr_cache}
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, seq: int, dtype, device
+                   ) -> Dict:
+    return {"c": torch.zeros((batch, seq, cfg.kv_lora_rank), dtype=dtype,
+                             device=device),
+            "kr": torch.zeros((batch, seq, cfg.qk_rope_dim), dtype=dtype,
+                              device=device)}
+
+
+# ---------------------------------------------------------------------------
 # MLP (gated SwiGLU / plain GELU)
 # ---------------------------------------------------------------------------
 
@@ -368,3 +479,114 @@ def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
     return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (fine-grained, shared + routed, top-k)
+# ---------------------------------------------------------------------------
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, fe, E = cfg.d_model, cfg.d_ff_expert, cfg.n_routed_experts
+    dt = torch_dtype(cfg.param_dtype)
+    dev = gen.device
+
+    def experts(din: int, dout: int) -> torch.Tensor:
+        w = torch.randn((E, din, dout), generator=gen, device=dev,
+                        dtype=torch.float32)
+        return (w * (1.0 / math.sqrt(din))).to(dt)
+
+    router = torch.randn((d, E), generator=gen, device=dev,
+                         dtype=torch.float32) * (1.0 / math.sqrt(d))
+    p: Params = {"router": router,                 # f32, as the reference
+                 "w_gate_e": experts(d, fe), "w_up_e": experts(d, fe),
+                 "w_down_e": experts(fe, d)}
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, cfg, d_ff=fe * cfg.n_shared_experts)
+    return p
+
+
+def top_k(probs: torch.Tensor, k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries of the last axis, in descending order, and
+    their indices; equal values go to the lower index first, as
+    ``lax.top_k`` (``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(p: Params, cfg: ModelConfig, x_flat: torch.Tensor):
+    """Top-k routing with normalized weights + aux load-balance loss, in
+    f32 (a bf16 router of a training step is widened, as the JAX
+    package's f32 product widens it)."""
+    logits = x_flat.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = top_k(probs, cfg.moe_top_k)                  # (T, k)
+    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    E = cfg.n_routed_experts
+    # aux: E * sum_e f_e * P_e  (Switch-style)
+    f = F.one_hot(idx, E).sum(dim=1).float().mean(dim=0)
+    pm = probs.mean(dim=0)
+    aux = E * torch.sum(f * pm) * cfg.router_aux_coef
+    return w.to(x_flat.dtype), idx, aux
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Slots per expert for ``n_tokens`` routed tokens."""
+    return max(1, int(math.ceil(n_tokens * cfg.moe_top_k
+                                / cfg.n_routed_experts
+                                * cfg.moe_capacity_factor)))
+
+
+def dispatch_slots(idx: torch.Tensor, E: int, C: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slot, keep) of every (token, k) pair of ``idx`` (T, k), flattened
+    token-major: a pair keeps slot ``e * C + n`` when it is the n-th pair
+    (n < C) routed to expert e in that order; the others overflow to row
+    ``E * C`` and are dropped."""
+    flat_e = idx.reshape(-1)                                    # (T*k,)
+    oh = F.one_hot(flat_e, E)                                   # (T*k, E)
+    # position of each (token, k) within its expert's capacity buffer
+    pos_in_e = torch.gather(torch.cumsum(oh, dim=0) - 1, 1,
+                            flat_e[:, None])[:, 0]
+    keep = pos_in_e < C
+    slot = torch.where(keep, flat_e * C + pos_in_e,
+                       torch.full_like(flat_e, E * C))          # overflow row
+    return slot, keep
+
+
+def _expert_ffn(recv: torch.Tensor, wg, wu, wd) -> torch.Tensor:
+    """(E, C, d) -> (E, C, d) batched expert matmuls."""
+    dt = recv.dtype
+    h = F.silu(torch.bmm(recv, wg.to(dt))) * torch.bmm(recv, wu.to(dt))
+    return torch.bmm(h, wd.to(dt))
+
+
+def _dispatch_combine(p: Params, cfg: ModelConfig, x_flat: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based dispatch -> expert FFN -> combine, on one device
+    (the JAX package's ``ep=1`` path)."""
+    T, d = x_flat.shape
+    E, k = cfg.n_routed_experts, cfg.moe_top_k
+    C = moe_capacity(cfg, T)
+    w, idx, aux = _route(p, cfg, x_flat)
+    slot, keep = dispatch_slots(idx, E, C)
+    x_rep = torch.repeat_interleave(x_flat, k, dim=0)           # (T*k, d)
+    send = x_flat.new_zeros((E * C + 1, d)).index_put((slot,), x_rep)
+    out = _expert_ffn(send[:-1].reshape(E, C, d), p["w_gate_e"],
+                      p["w_up_e"], p["w_down_e"])
+    got = torch.cat([out.reshape(E * C, d), x_flat.new_zeros((1, d))])
+    y = got[slot] * keep[:, None].to(x_flat.dtype)              # (T*k, d)
+    y = (y.reshape(T, k, d) * w[..., None]).sum(dim=1)
+    return y, aux
+
+
+def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routed + shared experts: (y, aux)."""
+    B, S, d = x.shape
+    y, aux = _dispatch_combine(p, cfg, x.reshape(-1, d))
+    y = y.reshape(B, S, d)
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(p["shared"], cfg, x)
+    return y, aux

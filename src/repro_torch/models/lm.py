@@ -1,31 +1,42 @@
-"""Decoder-only language models of the dense, SSM and hybrid families, in
-PyTorch.
+"""Decoder-only language models in PyTorch: the dense, MoE, MLA, SSM,
+hybrid and VLM families.
 
 The counterpart of the JAX package's ``models/lm.py`` for the block kinds
-``"dense"``, ``"ssm"`` (mamba2: a norm and the SSD, no MLP) and
-``"hybrid"`` (hymba: attention and the SSD side by side on the same
-normed input, averaged, then the MLP).  The layer stack is a Python loop
-over a list of per-layer parameter dicts (the JAX package scans stacked
-leaves); ``layers[i]`` holds what ``layers[...][i]`` holds there.
+``"dense"``, ``"moe"`` (attention, then routed + shared experts),
+``"dense_first"`` (the first ``first_k_dense`` layers of a MoE model, with
+a dense FFN of width ``first_dense_ff``), ``"ssm"`` (mamba2: a norm and
+the SSD, no MLP) and ``"hybrid"`` (hymba: attention and the SSD side by
+side on the same normed input, averaged, then the MLP).  With ``cfg.mla``
+every attention is DeepSeek-V2's latent attention and the decode cache
+holds the latent ``c`` and rope key ``kr``.  A VLM's ``batch["patches"]``
+(B, n_patches, d_model) go before the token embeddings; positions run
+over both, and logits cover the text positions only.
+
+The layer stack is a Python loop over a list of per-layer parameter dicts
+(the JAX package scans stacked leaves); ``layers[i]`` holds what
+``layers[...][i]`` holds there, and the first dense layers are
+``params["first_{i}"]`` and ``cache["first"][i]``, as there.
 
 Entry points:
 
   train_forward  -> logits + aux  (full sequence, causal)
-  loss_fn        -> mean token cross-entropy + metrics (differentiable)
+  loss_fn        -> mean token cross-entropy + aux + metrics
+                    (differentiable)
   prefill        -> last-position logits + per-layer decode caches
   decode_step    -> next-token ids + updated caches (one token)
 
-With ``cfg.remat == "block"`` and autograd on, every block runs under
-``torch.utils.checkpoint`` (the JAX package checkpoints its scan body), so
-a backward pass recomputes each block's forward, kernels included.
+With ``cfg.remat == "block"`` and autograd on, every block, the first
+dense ones included, runs under ``torch.utils.checkpoint`` (the JAX
+package checkpoints its scan body), so a backward pass recomputes each
+block's forward, kernels included.
 
-MoE, MLA, encoder-decoder and VLM configurations are not ported yet
-(``models.get_model`` refuses them).
+Encoder-decoder configurations are not ported yet (``models.get_model``
+refuses them).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -43,16 +54,32 @@ Params = Dict[str, Any]
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
-    """kind: dense | ssm | hybrid."""
+    """kind: dense | dense_first | moe | ssm | hybrid."""
     dev = gen.device
     p: Params = {"ln1": L.norm_init(cfg.d_model, cfg, dev)}
     if kind != "ssm":
-        p["attn"] = L.attn_init(gen, cfg)
+        p["attn"] = L.mla_init(gen, cfg) if cfg.mla else L.attn_init(gen, cfg)
         p["ln2"] = L.norm_init(cfg.d_model, cfg, dev)
-        p["mlp"] = L.mlp_init(gen, cfg)
-    if kind != "dense":
+        if kind == "moe":
+            p["moe"] = L.moe_init(gen, cfg)
+        elif kind == "dense_first":
+            p["mlp"] = L.mlp_init(gen, cfg, d_ff=cfg.first_dense_ff)
+        else:
+            p["mlp"] = L.mlp_init(gen, cfg)
+    if kind in ("ssm", "hybrid"):
         p["ssm"] = S.ssd_init(gen, cfg)
     return p
+
+
+def _attend(p: Params, cfg: ModelConfig, h: torch.Tensor,
+            positions: torch.Tensor,
+            proj: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """Full-sequence attention, GQA or MLA; with ``proj`` a dict, the
+    projections a decode cache holds (k and v, or c and kr) are left in
+    it."""
+    if cfg.mla:
+        return L.mla_apply(p["attn"], cfg, h, positions, lat=proj)
+    return L.attn_apply(p["attn"], cfg, h, positions, kv=proj)
 
 
 def _mix(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -61,50 +88,60 @@ def _mix(p: Params, cfg: ModelConfig, x: torch.Tensor,
     h = L.apply_norm(x, p["ln1"], cfg)
     if kind == "ssm":
         return S.ssd_apply(p["ssm"], cfg, h)
-    out = L.attn_apply(p["attn"], cfg, h, positions)
+    out = _attend(p, cfg, h, positions)
     if kind == "hybrid":
         out = 0.5 * (out + S.ssd_apply(p["ssm"], cfg, h))
     return out
 
 
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, kind: str
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The MLP (or MoE) half of a block: (x + its output, MoE aux or
+    None)."""
+    h = L.apply_norm(x, p["ln2"], cfg)
+    if kind == "moe":
+        y, aux = L.moe_apply(p["moe"], cfg, h)
+        return x + y, aux
+    return x + L.mlp_apply(p["mlp"], cfg, h), None
+
+
 def block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, kind: str) -> torch.Tensor:
+                positions: torch.Tensor, kind: str
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     x = x + _mix(p, cfg, x, positions, kind)
     if kind == "ssm":
-        return x
-    return x + L.mlp_apply(p["mlp"], cfg, L.apply_norm(x, p["ln2"], cfg))
+        return x, None
+    return _ffn(p, cfg, x, kind)
 
 
 def block_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, kind: str
                   ) -> Tuple[torch.Tensor, Dict]:
-    """Forward + this layer's decode cache.  k and v come from the one
-    projection the attention makes (the JAX package projects a second time
-    for the cache; the values are the same)."""
+    """Forward + this layer's decode cache.  k and v (MLA: c and kr) come
+    from the one projection the attention makes (the JAX package projects
+    a second time for the cache; the values are the same)."""
     h = L.apply_norm(x, p["ln1"], cfg)
     cache: Dict = {}
     if kind == "ssm":
         out, cache["ssm"] = S.ssd_apply(p["ssm"], cfg, h, with_cache=True)
         return x + out, cache
     Sq = h.shape[1]
-    kv: Dict[str, torch.Tensor] = {}
-    out = L.attn_apply(p["attn"], cfg, h, positions, kv=kv)
-    k, v = kv["k"], kv["v"]
+    proj: Dict[str, torch.Tensor] = {}
+    out = _attend(p, cfg, h, positions, proj)
     W = min(Sq, cfg.sliding_window) if cfg.sliding_window else Sq
-    if W < Sq:  # ring layout consistent with decode's slot = pos % W
+    if cfg.mla or W == Sq:
+        cache.update(proj)
+    else:  # ring layout consistent with decode's slot = pos % W
+        k, v = proj["k"], proj["v"]
         idx = (Sq - W + torch.arange(W, device=k.device)) % W
         cache["k"] = torch.zeros_like(k[:, Sq - W:])
         cache["v"] = torch.zeros_like(v[:, Sq - W:])
         cache["k"][:, idx] = k[:, Sq - W:]
         cache["v"][:, idx] = v[:, Sq - W:]
-    else:
-        cache["k"], cache["v"] = k, v
     if kind == "hybrid":
         s_out, cache["ssm"] = S.ssd_apply(p["ssm"], cfg, h, with_cache=True)
         out = 0.5 * (out + s_out)
-    x = x + out
-    return x + L.mlp_apply(p["mlp"], cfg, L.apply_norm(x, p["ln2"], cfg)), \
-        cache
+    return _ffn(p, cfg, x + out, kind)[0], cache
 
 
 def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
@@ -114,15 +151,14 @@ def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     if kind == "ssm":
         out, ssm_cache = S.ssd_decode(p["ssm"], cfg, h, cache["ssm"])
         return x + out, {"ssm": ssm_cache}
-    out, kv = L.attn_decode(p["attn"], cfg, h, cache, pos, pos0)
-    new_cache = {"k": kv["k"], "v": kv["v"]}
+    decode = L.mla_decode if cfg.mla else L.attn_decode
+    out, new_cache = decode(p["attn"], cfg, h, cache, pos, pos0)
+    new_cache = dict(new_cache)
     if kind == "hybrid":
         s_out, new_cache["ssm"] = S.ssd_decode(p["ssm"], cfg, h,
                                                cache["ssm"])
         out = 0.5 * (out + s_out)
-    x = x + out
-    return x + L.mlp_apply(p["mlp"], cfg, L.apply_norm(x, p["ln2"], cfg)), \
-        new_cache
+    return _ffn(p, cfg, x + out, kind)[0], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -130,21 +166,31 @@ def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
 # ---------------------------------------------------------------------------
 
 
-def layer_kind(cfg: ModelConfig) -> str:
-    """The block kind of every layer: ``"ssm"``, ``"hybrid"`` or
-    ``"dense"`` (the JAX package's ``_layer_kinds``, ``lm.py:158``, without
-    MoE's first dense layers)."""
+def layer_kinds(cfg: ModelConfig) -> Tuple[str, int, int]:
+    """(kind of the stacked layers, number of first dense layers, number
+    of stacked layers): the JAX package's ``_layer_kinds`` (``lm.py:158``).
+    """
     if cfg.family == "ssm":
-        return "ssm"
+        return "ssm", 0, cfg.n_layers
     if cfg.hybrid:
-        return "hybrid"
-    return "dense"
+        return "hybrid", 0, cfg.n_layers
+    if cfg.is_moe:
+        return "moe", cfg.first_k_dense, cfg.n_layers - cfg.first_k_dense
+    return "dense", 0, cfg.n_layers
+
+
+def _blocks(cfg: ModelConfig, params: Params) -> List[Tuple[Params, str]]:
+    """(parameters, kind) of every layer in order: the first dense layers,
+    then the stack."""
+    kind, n_first, _ = layer_kinds(cfg)
+    return [(params[f"first_{i}"], "dense_first") for i in range(n_first)] \
+        + [(lp, kind) for lp in params["layers"]]
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Parameters on ``gen.device`` with the JAX package's shapes, scales
-    and dtypes (``lm.py:169-186``, ``ssm.py:34-54``); the random numbers
-    differ."""
+    and dtypes (``lm.py:169-186``, ``layers.py``, ``ssm.py:34-54``); the
+    random numbers differ."""
     dt = L.torch_dtype(cfg.param_dtype)
     V, d = cfg.padded_vocab, cfg.d_model
     dev = gen.device
@@ -156,8 +202,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     head = torch.randn((V, d), generator=gen, device=dev, dtype=torch.float32)
     p["lm_head"] = (head * (1.0 / d ** 0.5)).to(dt)
     del head
-    kind = layer_kind(cfg)
-    p["layers"] = [block_init(gen, cfg, kind) for _ in range(cfg.n_layers)]
+    kind, n_first, n_scan = layer_kinds(cfg)
+    p["layers"] = [block_init(gen, cfg, kind) for _ in range(n_scan)]
+    for i in range(n_first):
+        p[f"first_{i}"] = block_init(gen, cfg, "dense_first")
     return p
 
 
@@ -168,27 +216,52 @@ def _tokens(device, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, dtype=torch.int64, device=device)
 
 
+def _has_patches(cfg: ModelConfig, batch: Dict) -> bool:
+    return cfg.family == "vlm" and "patches" in batch
+
+
+def prompt_len(cfg: ModelConfig, batch: Dict) -> int:
+    """Positions a prefill of ``batch`` fills: its tokens, after a VLM's
+    patches."""
+    n = batch["tokens"].shape[1]
+    return n + batch["patches"].shape[1] if _has_patches(cfg, batch) else n
+
+
 def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token embeddings and positions."""
-    tok = _tokens(params["embed"].device, batch["tokens"])
-    x = params["embed"][tok].to(L.torch_dtype(cfg.dtype))
-    B, S = tok.shape
+    """Token (+ VLM patch) embeddings and positions."""
+    dev = params["embed"].device
+    x = params["embed"][_tokens(dev, batch["tokens"])].to(
+        L.torch_dtype(cfg.dtype))
+    if _has_patches(cfg, batch):
+        patches = torch.as_tensor(batch["patches"], device=dev)
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     return x, positions
 
 
+def _text(cfg: ModelConfig, x: torch.Tensor, batch: Dict) -> torch.Tensor:
+    """The text positions of ``x`` (a VLM's last ``tokens`` positions)."""
+    if cfg.family == "vlm":
+        return x[:, -batch["tokens"].shape[1]:]
+    return x
+
+
 def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    kind = layer_kind(cfg)
+    """Every block in order; returns (x, the sum of the MoE layers' aux)."""
     remat = cfg.remat == "block" and torch.is_grad_enabled()
-    for lp in params["layers"]:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, kind in _blocks(cfg, params):
         if remat:
-            x = checkpoint(block_apply, lp, cfg, x, positions, kind,
-                           use_reentrant=False)
+            x, a = checkpoint(block_apply, lp, cfg, x, positions, kind,
+                              use_reentrant=False)
         else:
-            x = block_apply(lp, cfg, x, positions, kind)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = block_apply(lp, cfg, x, positions, kind)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def logits_f32(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
@@ -215,7 +288,7 @@ def train_forward(cfg: ModelConfig, params: Params, batch: Dict
     """Full-sequence logits. Returns (logits_f32, aux_loss)."""
     x, positions = _embed_inputs(cfg, params, batch)
     x, aux = _run_stack(cfg, params, x, positions)
-    x = L.apply_norm(x, params["final_norm"], cfg)
+    x = L.apply_norm(_text(cfg, x, batch), params["final_norm"], cfg)
     return logits_f32(x, params["lm_head"]), aux
 
 
@@ -261,11 +334,11 @@ def _ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean cross-entropy over the unmasked labels (+ aux, 0 for the
-    ported families); metrics ``nll``, ``aux`` and ``ntok``."""
+    """Mean cross-entropy over the unmasked labels + the MoE layers' aux
+    (0 without experts); metrics ``nll``, ``aux`` and ``ntok``."""
     x, positions = _embed_inputs(cfg, params, batch)
     x, aux = _run_stack(cfg, params, x, positions)
-    x = L.apply_norm(x, params["final_norm"], cfg)
+    x = L.apply_norm(_text(cfg, x, batch), params["final_norm"], cfg)
     nll_sum, ntok = chunked_ce(cfg, x, params["lm_head"], batch["labels"])
     denom = torch.clamp(ntok, min=1.0)
     loss = nll_sum / denom + aux
@@ -279,48 +352,50 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
     """Process the full prompt; return last-position logits + caches."""
     x, positions = _embed_inputs(cfg, params, batch)
-    kind = layer_kind(cfg)
     caches: List[Dict] = []
-    for lp in params["layers"]:
+    for lp, kind in _blocks(cfg, params):
         x, c = block_prefill(lp, cfg, x, positions, kind)
         caches.append(c)
     x = L.apply_norm(x[:, -1:], params["final_norm"], cfg)
     logits = logits_f32(x, params["lm_head"])
     B, S = positions.shape
     pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    return logits[:, 0], {"layers": caches, "first": [], "pos": pos}
+    n_first = layer_kinds(cfg)[1]
+    return logits[:, 0], {"layers": caches[n_first:],
+                          "first": caches[:n_first], "pos": pos}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device) -> Dict:
     """Zero decode caches for a max context of ``seq`` tokens."""
     dt = L.torch_dtype(cfg.dtype)
-    kind = layer_kind(cfg)
+    kind, n_first, n_scan = layer_kinds(cfg)
 
-    def one() -> Dict:
-        if kind == "ssm":
+    def one(k: str) -> Dict:
+        if k == "ssm":
             return {"ssm": S.ssd_cache_init(cfg, batch, dt, device)}
-        c = L.kv_cache_init(cfg, batch, seq, dt, device)
-        if kind == "hybrid":
+        init = L.mla_cache_init if cfg.mla else L.kv_cache_init
+        c = init(cfg, batch, seq, dt, device)
+        if k == "hybrid":
             c["ssm"] = S.ssd_cache_init(cfg, batch, dt, device)
         return c
 
-    return {"layers": [one() for _ in range(cfg.n_layers)],
-            "first": [],
+    return {"layers": [one(kind) for _ in range(n_scan)],
+            "first": [one("dense_first") for _ in range(n_first)],
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict, tokens
                 ) -> Tuple[torch.Tensor, Dict]:
     """One greedy decode step. tokens: (B, 1) -> (next (B, 1) int32, cache).
-    The KV caches are updated in place, the SSM caches are replaced; the
-    caches are returned with ``pos`` advanced."""
+    The KV and latent caches are updated in place, the SSM caches are
+    replaced; the caches are returned with ``pos`` advanced."""
     pos = cache["pos"]
     pos0 = int(pos[0])
     x = params["embed"][_tokens(params["embed"].device, tokens)].to(
         L.torch_dtype(cfg.dtype))
-    kind = layer_kind(cfg)
     new_caches = []
-    for lp, lc in zip(params["layers"], cache["layers"]):
+    for (lp, kind), lc in zip(_blocks(cfg, params),
+                              cache["first"] + cache["layers"]):
         x, c = block_decode(lp, cfg, x, lc, pos, pos0, kind)
         new_caches.append(c)
     x = L.apply_norm(x, params["final_norm"], cfg)
@@ -328,4 +403,6 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict, tokens
     # mask vocab padding, then greedy
     logits[..., cfg.vocab_size:] = float("-inf")
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    return next_tok, {"layers": new_caches, "first": [], "pos": pos + 1}
+    n_first = layer_kinds(cfg)[1]
+    return next_tok, {"layers": new_caches[n_first:],
+                      "first": new_caches[:n_first], "pos": pos + 1}

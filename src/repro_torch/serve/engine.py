@@ -17,7 +17,7 @@ import torch
 from ..core.apis import framework as frame
 from ..models import get_model
 from ..models.config import ModelConfig
-from ..models.lm import layer_kind
+from ..models.lm import layer_kinds, prompt_len
 
 
 class ServeEngine:
@@ -39,17 +39,19 @@ class ServeEngine:
 
         The prefill cache is re-seated into a fresh max_seq cache so long
         generations never reallocate (static-shape serving).  A dense KV
-        cache (no ``sliding_window``) holds ``max_seq`` positions and no
-        more, so a request whose last decode step would write past it is
-        refused with ``ValueError`` before any prefill; ring caches and
-        SSM state decode past ``max_seq``.  (The JAX package clamps the
-        write and decodes on over a corrupt cache.)
+        or MLA latent cache (no ``sliding_window``) holds ``max_seq``
+        positions and no more, so a request whose last decode step would
+        write past it is refused with ``ValueError`` before any prefill; a
+        VLM's prompt counts its patches.  Ring caches and SSM state decode
+        past ``max_seq``.  (The JAX package clamps the write and decodes on
+        over a corrupt cache.)
         """
-        B, S = batch["tokens"].shape[:2]
+        B = batch["tokens"].shape[0]
+        S = prompt_len(self.cfg, batch)
         last = S + n_new - 1          # positions written by the last step
         if last > self.max_seq and _bounded_kv(self.cfg):
             raise ValueError(
-                f"{self.cfg.name}: a prompt of {S} tokens and {n_new} new "
+                f"{self.cfg.name}: a prompt of {S} positions and {n_new} new "
                 f"tokens need {last} cache positions, but max_seq is "
                 f"{self.max_seq} and the KV cache is not a ring "
                 f"(no sliding_window)")
@@ -71,17 +73,19 @@ class ServeEngine:
 
 
 def _bounded_kv(cfg: ModelConfig) -> bool:
-    """True when some layer keeps a KV cache of exactly ``max_seq``
-    positions: attention without a sliding window (a windowed cache is a
-    ring, SSM state has no positions)."""
-    return layer_kind(cfg) != "ssm" and not cfg.sliding_window
+    """True when some layer keeps a KV or latent cache of exactly
+    ``max_seq`` positions: attention without a sliding window (a windowed
+    cache is a ring, SSM state has no positions)."""
+    return layer_kinds(cfg)[0] != "ssm" and not cfg.sliding_window
 
 
 def _seat(cache, pf_cache):
-    """Copy the prefill caches (KV, SSM state and conv tail) into the
-    preallocated max_seq decode cache, in place (the JAX package builds a
-    new tree, ``serve/engine.py:52-71``)."""
-    for dst, src in zip(cache["layers"], pf_cache["layers"]):
+    """Copy the prefill caches (KV or latent, SSM state and conv tail, the
+    first dense layers' too) into the preallocated max_seq decode cache,
+    in place (the JAX package builds a new tree,
+    ``serve/engine.py:52-71``)."""
+    for dst, src in zip(cache["first"] + cache["layers"],
+                        pf_cache["first"] + pf_cache["layers"]):
         _copy_leaves(dst, src)
     cache["pos"] = pf_cache["pos"].clone()
     return cache
@@ -96,8 +100,8 @@ def _copy_leaves(dst: Dict, src: Dict) -> None:
             d.copy_(s)
         else:
             # sequence-axis mismatch: place the prompt at the cache head
-            # (k/v: seq axis ndim-3; conv: ndim-2).  As in the JAX package,
-            # a prompt shorter than conv_width - 1 puts its conv tail at
-            # the head of the window, not beside the next token.
+            # (k/v: seq axis ndim-3; c/kr and conv: ndim-2).  As in the JAX
+            # package, a prompt shorter than conv_width - 1 puts its conv
+            # tail at the head of the window, not beside the next token.
             ax = d.dim() - 3 if name in ("k", "v") else d.dim() - 2
             d.narrow(ax, 0, s.shape[ax]).copy_(s)

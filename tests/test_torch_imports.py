@@ -60,6 +60,7 @@ def test_recorder_import_leaves_jax_unloaded():
             "repro_torch.core.analysis, repro_torch.core.converters, "
             "repro_torch.traceserve, repro_torch.launch.traceserve, "
             "repro_torch.models, repro_torch.models.convert, "
+            "repro_torch.models.layers, repro_torch.models.lm, "
             "repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.configs, repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.ssd_scan, "

@@ -356,10 +356,35 @@ def test_sliding_window_ring_cache_matches_jax():
         _close(c["layers"][0]["v"], cache["layers"]["v"][0])
 
 
-@pytest.mark.parametrize("arch", sorted(set(all_arch_names()) - set(ARCHS)))
+ENCDEC_ARCHS = ["seamless-m4t-large-v2"]
+# held to the JAX package in tests/test_torch_{moe,mla,vlm}.py
+NEW_ARCHS = ["deepseek-moe-16b", "deepseek-v2-lite-16b", "llava-next-34b"]
+
+
+def test_every_arch_is_ported_or_refused():
+    assert sorted(ARCHS + NEW_ARCHS + ENCDEC_ARCHS) == sorted(all_arch_names())
+
+
+@pytest.mark.parametrize("arch", ENCDEC_ARCHS)
 def test_other_families_are_refused(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
         get_model(get_smoke_config(arch), "cpu")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_moe_mla_vlm_families_are_built(arch):
+    """Built on the CPU when asked, on the card by default: without one,
+    the default device raises."""
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg, "cpu")
+    assert model.device.type == "cpu"
+    params = model.init_params(torch.Generator().manual_seed(0))
+    n_first = cfg.first_k_dense if cfg.is_moe else 0
+    assert len(params["layers"]) == cfg.n_layers - n_first
+    assert ("first_0" in params) == bool(n_first)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            get_model(cfg)
 
 
 def test_configs_are_the_published_ones():

@@ -99,6 +99,17 @@ def test_cli_serves_ssm_and_hybrid_on_the_cpu(arch, capsys):
     assert out["generated_shape"] == [2, 4] and out["device"] == "cpu"
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "deepseek-v2-lite-16b", "llava-next-34b"])
+def test_cli_serves_moe_mla_and_vlm_on_the_cpu(arch, capsys):
+    """The VLM's prompt holds its patches: 8 + 16 positions of 64."""
+    serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                    "--batch", "2", "--prompt-len", "16",
+                    "--new-tokens", "4", "--max-seq", "64"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["generated_shape"] == [2, 4] and out["device"] == "cpu"
+
+
 def _traced(tmp_path, n_new: int):
     tdir = os.path.join(tmp_path, f"serve{n_new}")
     serve_cli.main(["--arch", "qwen3-32b", "--smoke", "--device", "cpu",

@@ -31,6 +31,7 @@ each Function's gradients equal to plain autograd on the card.
 """
 
 import functools
+import json
 import os
 import shutil
 import subprocess
@@ -667,6 +668,19 @@ def test_cli_trains_on_the_cpu(tmp_path):
     assert [r.arg("step_idx") for r in steps] == [0, 1, 2, 3]
     assert train_cli.build_parser().parse_args(
         ["--arch", "x"]).device == "cuda"
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "deepseek-v2-lite-16b", "llava-next-34b"])
+def test_cli_trains_moe_mla_and_vlm_on_the_cpu(arch, tmp_path, capsys):
+    """Two steps and a checkpoint; the MoE models' loss holds aux."""
+    train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                    "--steps", "2", "--batch", "2", "--seq", "16",
+                    "--ckpt-every", "2", "--ckpt-dir",
+                    str(tmp_path / "ckpt")])
+    out = json.loads(capsys.readouterr().out)
+    assert out["result"]["final_step"] == 2
+    assert np.isfinite(out["loss_first"]) and np.isfinite(out["loss_last"])
 
 
 # ---------------------------------------------------------------------------
