@@ -99,6 +99,16 @@ csrc`` and then runs, in order:
                 ``attn_impl`` says; its one kernel, RMSNorm on the latent,
                 is held in the kernels phase at (4, 1,024, 512) and (4, 1,
                 512)); f32 at 4 layers for MoE and the VLM;
+9c. serve_encdec -- the same for the encoder-decoder,
+                seamless-m4t-large-v2 at full depth (24 encoder and 24
+                decoder layers), 1,024 seeded frames and 128 target tokens
+                a prompt, max_seq 2,048, so that decode masks the cross
+                attention to the encoder's length; the encoder runs the
+                flash kernel without a causal mask, the decoder with one
+                (48 launches a prefill); frames past max_seq must be
+                refused before any launch; f32 at 4 + 4 layers against
+                the plain path, and 8 decode steps fed the true next
+                tokens against ``train_forward``'s logits;
 10. train    -- the training workload: mamba2-370m at its published
                 widths and depth (48 layers), bf16 compute with f32 master
                 weights and moments, block remat, 4 x 1,024 synthetic
@@ -122,7 +132,12 @@ csrc`` and then runs, in order:
                 deepseek-moe-16b at full width, 3 layers (one dense, two
                 MoE): the same guard (the router's and every expert's
                 gradient finite and non-zero) and a ``Trainer``'s 2 steps,
-                loss, aux and gradient norm finite, aux above 0.  It
+                loss, aux and gradient norm finite, aux above 0; then
+                seamless-m4t-large-v2 at full width and depth on the train
+                launcher's data (4 x 1,024 frames and tokens): the same
+                guard and loss check and a ``Trainer``'s 2 steps, each
+                run's peak memory under 70 GB above what it began with.
+                It
                 prints step time, tokens/s, device busy and idle share,
                 peak memory, checkpoint seconds and bytes and the trace's
                 records and bytes beside the card's name and power limit;
@@ -144,6 +159,9 @@ csrc`` and then runs, in order:
                 before each job; then Fig 10, the record-path cost of no
                 tool, Recorder, Recorder-old and Darshan-like (one rank,
                 1,000 iterations, best of 3), printed only;
+11b. examples -- ``examples/torch_quickstart.py`` (4 steps) and
+                ``examples/torch_workflow_analysis.py`` on the card with the
+                ``cuda`` encode backend, their traces read back;
 12. report   -- the kernels' launch counts from phases 3-6 and from the
                 serve runs (each must be above 0, but 0 for the direct
                 counterparts that the main path no longer launches:
@@ -156,8 +174,10 @@ csrc`` and then runs, in order:
                 time per call, summed over the kernels a call launches
                 (the bf16 SSD scan launches three); flash attention and
                 the SSD scan also at hymba's serve shape
-                (``other_shape``), and their f32 paths (the CUDA-core
-                kernels) at the serve shapes on a line before it; each
+                (``other_shape``), flash attention at llava-next-34b's and
+                seamless-m4t-large-v2's encoder's, and their f32 paths
+                (the CUDA-core kernels) at the serve shapes on a line
+                before it; each
                 row also carries its ``evaluation_launches``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -171,6 +191,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import os
@@ -207,10 +228,12 @@ SERVE_BATCH, SERVE_NEW = 4, 32
 # kernel of the model.  A MoE model's plain path is held with the kernel
 # path's routing replayed (``RouteLog``); its own routing is compared and
 # its flips counted.  A VLM's prompt is its ``n_patches`` patch embeddings
-# and then ``prompt`` tokens.
+# and then ``prompt`` tokens; an encoder-decoder's is ``frames`` frame
+# embeddings beside ``prompt`` target tokens, and ``layers`` and
+# ``f32_layers`` cut its encoder as its decoder.
 ServeSpec = collections.namedtuple(
     "ServeSpec", "arch layers of prompt max_seq plain rtol f32_rtol "
-    "f32_layers", defaults=(None,))
+    "f32_layers frames", defaults=(None, 0))
 SERVE_SPECS = (
     # 16 of 64 layers (one stage of four), to leave room for the plain
     # run.  The paths differ by the bf16 rounding of p in every attention,
@@ -246,6 +269,16 @@ SERVE_SPECS = (
     # layer times 16 layers; f32 at 4 layers as above
     ServeSpec("llava-next-34b", 16, 60, 1024, 4096, {"attn_impl": "torch"},
               5e-2, 1e-3, 4),
+    # full depth (24 encoder + 24 decoder layers), 1,024 frames and 128
+    # target tokens a prompt, max_seq 2,048, so the cross-attention mask
+    # cuts the cache at the encoder's length.  The paths differ by flash's
+    # bf16 rounding of p in both self-attentions (cross attention is plain
+    # on both): the 2 + 2-layer bf16 smoke model reads 1.32e-2 to 1.62e-2
+    # on the CPU (weight seeds 0-2, tests/test_torch_encdec.py), at most
+    # 4.05e-3 an attention layer; times the 48 attention layers, 0.194,
+    # held to 0.2.  f32 at 4 + 4 layers as above
+    ServeSpec("seamless-m4t-large-v2", 24, 24, 128, 2048,
+              {"attn_impl": "torch"}, 0.2, 1e-3, 4, 1024),
 )
 SERVE_ARCH = SERVE_SPECS[0].arch   # rows 8 and 9 are measured at its shapes
 SSD_ARCH = SERVE_SPECS[1].arch     # row 10 at mamba2's
@@ -589,20 +622,25 @@ def close_err(got: torch.Tensor, want: torch.Tensor, what: str,
 def serve_kernel_calls(s) -> dict:
     """The flash-attention and RMSNorm calls of the serve runs after
     qwen3's, from their configurations: the prefill's attention (q shape,
-    KV heads, window; causal) where it takes the flash kernel (not SSM,
-    not MLA; a VLM's prompt holds its patches); the SSD gate norm's input
-    in the prefill (B, S, nh, hd) and in decode (B, nh, hd); MLA's latent
-    norm's input, a column slice of the down-projection made contiguous,
-    in the prefill (B, S, kv_lora_rank) and in decode (B, 1,
-    kv_lora_rank)."""
+    KV heads, window, causal) where it takes the flash kernel (not SSM,
+    not MLA; a VLM's prompt holds its patches; an encoder-decoder's
+    encoder attends over its frames without a causal mask, its decoder
+    over the target tokens with one); the SSD gate norm's input in the
+    prefill (B, S, nh, hd) and in decode (B, nh, hd); MLA's latent norm's
+    input, a column slice of the down-projection made contiguous, in the
+    prefill (B, S, kv_lora_rank) and in decode (B, 1, kv_lora_rank)."""
     calls = {"flash_attention": [], "rmsnorm": []}
     for spec in SERVE_SPECS[1:]:
         cfg = s.get_config(spec.arch)
         n_pos = spec.prompt + (cfg.n_patches if cfg.family == "vlm" else 0)
+        if cfg.n_encoder_layers:
+            calls["flash_attention"].append(
+                ((SERVE_BATCH, spec.frames, cfg.n_heads, cfg.hd),
+                 cfg.n_kv_heads, cfg.sliding_window, False))
         if cfg.family != "ssm" and not cfg.mla:
             calls["flash_attention"].append(
                 ((SERVE_BATCH, n_pos, cfg.n_heads, cfg.hd),
-                 cfg.n_kv_heads, cfg.sliding_window))
+                 cfg.n_kv_heads, cfg.sliding_window, True))
         if cfg.family == "ssm" or cfg.hybrid:
             calls["rmsnorm"] += [
                 ((SERVE_BATCH, n_pos, cfg.ssm_heads, cfg.ssm_head_dim),),
@@ -613,14 +651,14 @@ def serve_kernel_calls(s) -> dict:
     return calls
 
 
-def flash_check(k, q, kk, v, window: int, what: str) -> float:
+def flash_check(k, q, kk, v, window: int, causal: bool, what: str) -> float:
     """Flash attention against its plain version, one sequence of the
     batch at a time (the plain version's f32 scores of a 3,904-token
     prompt take 3.4 GB a sequence at 56 heads)."""
-    got = k.fa.flash_attention(q, kk, v, window=window)
+    got = k.fa.flash_attention(q, kk, v, causal=causal, window=window)
     return max(close_err(got[b:b + 1], k.fa_ref.flash_attention_ref(
-        q[b:b + 1], kk[b:b + 1], v[b:b + 1], window=window), what)
-        for b in range(q.shape[0]))
+        q[b:b + 1], kk[b:b + 1], v[b:b + 1], causal=causal, window=window),
+        what) for b in range(q.shape[0]))
 
 
 def model_kernels(k, serve_calls: dict) -> dict:
@@ -667,13 +705,15 @@ def model_kernels(k, serve_calls: dict) -> dict:
     log(f"flash_attention at the serve prefill shape (4, 1024, 64, 128) "
         f"bf16 causal: max abs error {err:.3g}")
     for dtype in (torch.float32, torch.bfloat16):
-        for (B, S, H, D), kvh, window in serve_calls["flash_attention"]:
+        for (B, S, H, D), kvh, window, causal in \
+                serve_calls["flash_attention"]:
             q = randn((B, S, H, D), 41, dtype)
             kk = randn((B, S, kvh, D), 42, dtype)
             v = randn((B, S, kvh, D), 43, dtype)
             what = (f"flash_attention at the serve shape q {(B, S, H, D)}, "
-                    f"{kvh} KV heads, causal, window {window}, {dtype}")
-            err = flash_check(k, q, kk, v, window, what)
+                    f"{kvh} KV heads, causal={causal}, window {window}, "
+                    f"{dtype}")
+            err = flash_check(k, q, kk, v, window, causal, what)
             del q, kk, v
             log(f"{what}: max abs error {err:.3g}")
         for (shape,) in serve_calls["rmsnorm"]:
@@ -698,11 +738,13 @@ def model_kernels(k, serve_calls: dict) -> dict:
 # flash attention, rows of RMSNorm, (B, nc, Q, nh, hd, ns) of the SSD scan:
 # prime lengths, lengths off the kernels' 64- and 128-row tiles, hymba's
 # windowed attention at a prime length past its window, and the shapes the
-# train phase gives them (qwen1.5-0.5b's attention, mamba2-370m's gate
-# norm and SSD at 4 x 1,024 tokens)
+# train phase gives them (qwen1.5-0.5b's attention and seamless's decoder
+# self-attention, seamless's encoder without a causal mask, mamba2-370m's
+# gate norm and SSD at 4 x 1,024 tokens)
 GRAD_FLASH = ((2, 37, 8, 2, 64, True, 0), (1, 257, 4, 4, 128, False, 0),
               (1, 2053, 25, 5, 64, True, 1024),
-              (4, 1024, 16, 16, 64, True, 0))
+              (4, 1024, 16, 16, 64, True, 0),
+              (4, 1024, 16, 16, 64, False, 0))
 GRAD_NORM = ((37, 64), (3, 13, 128), (4, 1024, 32, 64))
 GRAD_SSD = ((2, 3, 37, 4, 64, 128), (1, 7, 1, 3, 16, 16),
             (4, 4, 256, 32, 64, 128))
@@ -1470,15 +1512,18 @@ def to_device(tree, device):
 def serve_launches(cfg, n_new: int) -> dict:
     """Model-kernel launches a generate of ``n_new`` tokens must make: one
     flash_attention per attention layer of the prefill (MoE's first dense
-    layer included; none for MLA, whose attention is the plain chunked
-    path), one ssd_scan per SSD layer of the prefill, and per layer and
+    layer included; an encoder-decoder's encoder layers too, its cross
+    attention being plain; none for MLA, whose attention is the plain
+    chunked path), one ssd_scan per SSD layer of the prefill, and per
+    layer and
     token two rmsnorm for QK-norm, one for the SSD gate norm and one for
     MLA's latent norm (the prefill's cache takes the attention's own
     projection, so a prefill norms the latent once a layer, as each decode
     step does)."""
     ssd = cfg.family == "ssm" or cfg.hybrid
     flash = cfg.family != "ssm" and not cfg.mla
-    return {"flash_attention": cfg.n_layers if flash else 0,
+    return {"flash_attention": (cfg.n_layers + cfg.n_encoder_layers)
+            if flash else 0,
             "ssd_scan": cfg.n_layers if ssd else 0,
             "rmsnorm": cfg.n_layers * n_new * (2 * cfg.qk_norm + ssd
                                                + cfg.mla)}
@@ -1531,7 +1576,7 @@ def kernel_vs_plain(s, cfg, plain: dict, params, batch) -> dict:
     plain path routing freely) and, for a MoE model, ``rel_replayed``
     (routing replayed from the kernel path) and the routing flips per MoE
     layer of both plain runs."""
-    dev = params["embed"].device
+    dev = param_device(s, params)
     out = {}
     with torch.inference_mode():
         with s.routes.use("record"):
@@ -1554,18 +1599,46 @@ def kernel_vs_plain(s, cfg, plain: dict, params, batch) -> dict:
     return out
 
 
-def serve_batch(cfg, n: int, prompt: int, seed: int, device) -> dict:
+def serve_batch(cfg, n: int, prompt: int, seed: int, device,
+                frames: int = 0) -> dict:
     """``n`` prompts of ``prompt`` tokens (numpy seed ``seed``); a VLM's
     ``n_patches`` patch embeddings before them, normal at the token
     embeddings' scale 0.02, from a generator on ``device`` seeded
-    ``seed``."""
+    ``seed``; an encoder-decoder's ``frames`` frame embeddings beside
+    them, normal, from the same generator (as the serve launcher's, whose
+    frames are numpy draws)."""
     batch = {"tokens": np.random.RandomState(seed).randint(
         0, cfg.vocab_size, size=(n, prompt)).astype(np.int32)}
+    gen = torch.Generator(device=device).manual_seed(seed)
     if cfg.family == "vlm":
-        gen = torch.Generator(device=device).manual_seed(seed)
         batch["patches"] = 0.02 * torch.randn(
             (n, cfg.n_patches, cfg.d_model), generator=gen, device=device)
+    if cfg.n_encoder_layers:
+        batch["frames"] = torch.randn((n, frames, cfg.d_model),
+                                      generator=gen, device=device)
     return batch
+
+
+def param_device(s, params) -> torch.device:
+    return next(iter(s.flat_params(params).values())).device
+
+
+def refused_before_launch(s, eng, batch, n_new: int, what: str) -> str:
+    """``eng.generate(batch, n_new)`` must raise ``ValueError`` before any
+    kernel launch; returns its message."""
+    torch.cuda.synchronize()
+    s.build.reset_launches()
+    try:
+        eng.generate(batch, n_new)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"{what} were not refused")
+    torch.cuda.synchronize()
+    require(s.build.launch_counts() == {} and eng.stats == {},
+            f"{what}: the refused request launched "
+            f"{s.build.launch_counts()}")
+    return refused
 
 
 def phase_serve(s, spec: ServeSpec) -> dict:
@@ -1578,7 +1651,7 @@ def phase_serve(s, spec: ServeSpec) -> dict:
     against the CPU."""
     from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda")
-    cfg = s.get_config(spec.arch).replace(n_layers=spec.layers)
+    cfg = cut_layers(s.get_config(spec.arch), spec.layers)
     require(cfg.attn_impl == "cuda" and cfg.ssm_impl == "cuda",
             "the kernel paths must be the defaults")
     t = time.monotonic()
@@ -1588,7 +1661,9 @@ def phase_serve(s, spec: ServeSpec) -> dict:
     flat = s.flat_params(params)
     n_params = sum(x.numel() for x in flat.values())
     n_bytes = sum(x.numel() * x.element_size() for x in flat.values())
-    log(f"serve: {cfg.name}, {cfg.n_layers} of {spec.of} layers at d "
+    log(f"serve: {cfg.name}, {cfg.n_layers} of {spec.of} layers"
+        + (f" (and {cfg.n_encoder_layers} encoder layers)"
+           if cfg.n_encoder_layers else "") + f" at d "
         f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x "
         f"{cfg.hd}, window {cfg.sliding_window}, d_ff {cfg.d_ff}, SSD "
         f"{cfg.ssm_heads if cfg.ssm_state else 0} heads x {cfg.ssm_head_dim}"
@@ -1597,7 +1672,7 @@ def phase_serve(s, spec: ServeSpec) -> dict:
         f"{n_bytes} B, initialised in {time.monotonic() - t:.2f} s")
     res = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
            "param_bytes": n_bytes}
-    batch = serve_batch(cfg, SERVE_BATCH, spec.prompt, 0, dev)
+    batch = serve_batch(cfg, SERVE_BATCH, spec.prompt, 0, dev, spec.frames)
     n_pos = s.prompt_len(cfg, batch)
     eng = s.ServeEngine(cfg, params, max_seq=spec.max_seq, device=dev)
     if cfg.family != "ssm" and not cfg.sliding_window:
@@ -1605,24 +1680,22 @@ def phase_serve(s, spec: ServeSpec) -> dict:
         # whose last step would write past them is refused before any
         # kernel launch (a VLM's prompt counts its patches)
         over = spec.max_seq - n_pos + 2
-        torch.cuda.synchronize()
-        s.build.reset_launches()
-        refused = None
-        try:
-            eng.generate(batch, over)
-        except ValueError as e:
-            refused = str(e)
-        torch.cuda.synchronize()
-        require(refused is not None,
-                f"serve {cfg.name}: {n_pos} + {over} positions past "
-                f"max_seq {spec.max_seq} were not refused")
-        require(s.build.launch_counts() == {} and eng.stats == {},
-                f"serve {cfg.name}: the refused request launched "
-                f"{s.build.launch_counts()}")
+        refused = refused_before_launch(
+            s, eng, batch, over, f"serve {cfg.name}: {n_pos} + {over} "
+            f"positions past max_seq {spec.max_seq}")
         res["overrun_refused"] = True
         log(f"serve {cfg.name}: a prompt of {n_pos} positions + {over} new "
             f"tokens past max_seq {spec.max_seq} refused before any kernel "
             f"launch: {refused}")
+    if cfg.n_encoder_layers:
+        # the cross K/V hold max_seq encoder positions: so do the frames
+        n = spec.max_seq + 1
+        refused = refused_before_launch(
+            s, eng, serve_batch(cfg, SERVE_BATCH, spec.prompt, 0, dev, n), 2,
+            f"serve {cfg.name}: {n} frames past max_seq {spec.max_seq}")
+        res["long_encoder_refused"] = True
+        log(f"serve {cfg.name}: {n} frames past max_seq {spec.max_seq} "
+            f"refused before any kernel launch: {refused}")
     eng.generate(batch, 2)                 # warm-up: cuBLAS, first loads
     toks = eng.generate(batch, SERVE_NEW)  # timed, neither traced nor profiled
     st = dict(eng.stats)
@@ -1634,7 +1707,9 @@ def phase_serve(s, spec: ServeSpec) -> dict:
                 "decode_tokens_per_s": SERVE_BATCH * st["decode_steps"]
                 / st["decode_s"]})
     log(f"serve {cfg.name} (kernel path): prefill of {SERVE_BATCH} x "
-        f"{n_pos} positions {res['prefill_ms']:.2f} ms, decode "
+        f"{n_pos} positions"
+        + (f" and {spec.frames} frames" if cfg.n_encoder_layers else "")
+        + f" {res['prefill_ms']:.2f} ms, decode "
         f"{res['decode_ms_per_step']:.3f} ms per step of {SERVE_BATCH} "
         f"tokens, {res['tokens_per_s']:.1f} "
         f"tokens/s over {n_tok} generated ({res['decode_tokens_per_s']:.1f} "
@@ -1757,8 +1832,8 @@ def phase_serve(s, spec: ServeSpec) -> dict:
         del params, eng, eng_t, flat
         torch.cuda.empty_cache()
     if spec.f32_rtol is not None:
-        c32 = cfg.replace(dtype="float32", param_dtype="float32",
-                          n_layers=spec.f32_layers or cfg.n_layers)
+        c32 = cut_layers(cfg.replace(dtype="float32", param_dtype="float32"),
+                         spec.f32_layers or cfg.n_layers)
         p32 = s.get_model(c32, dev).init_params(
             torch.Generator(device=dev).manual_seed(0))
         cmp = kernel_vs_plain(s, c32, spec.plain, p32, batch)
@@ -1774,12 +1849,14 @@ def phase_serve(s, spec: ServeSpec) -> dict:
             f"{cmp[held]:.3g} ({held}; limit {spec.f32_rtol})" + (
                 f"; free routing {cmp['rel']:.3g}, flips {cmp['flips']}, "
                 f"replayed {cmp['flips_replayed']}" if cfg.is_moe else ""))
+        if cfg.n_encoder_layers:
+            res["teacher_forced"] = teacher_forced(s, c32, p32, spec)
         del p32
         torch.cuda.empty_cache()
 
     scfg = s.get_smoke_config(spec.arch)
     sp = s.get_model(scfg, "cpu").init_params(torch.Generator().manual_seed(0))
-    sb = serve_batch(scfg, 2, 37, 0, "cpu")
+    sb = serve_batch(scfg, 2, 37, 0, "cpu", SMOKE_FRAMES)
     want, _ = s.get_model(scfg, "cpu").prefill(sp, sb)
     got, _ = s.get_model(scfg, dev).prefill(to_device(sp, dev), sb)
     err = float((got.cpu() - want).abs().max())
@@ -1792,6 +1869,66 @@ def phase_serve(s, spec: ServeSpec) -> dict:
     log(f"smoke {spec.arch} (f32) on the card: prefill logits within "
         f"{err:.3g} of the CPU's plain path, 8 greedy tokens identical")
     return res
+
+
+def cut_layers(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers (an encoder-decoder's encoder
+    too)."""
+    enc = {"n_encoder_layers": layers} if cfg.n_encoder_layers else {}
+    return cfg.replace(n_layers=layers, **enc)
+
+
+# an encoder-decoder smoke model's frames a prompt on the card and the CPU:
+# fewer than its max_seq of 64, so the cross-attention mask cuts the cache
+SMOKE_FRAMES = 48
+# teacher forcing on the card: TEACHER_STEPS decode steps fed the true next
+# tokens after the serve run's prefix, their f32 logits against
+# train_forward's at the same positions (relative L2, a step at a time).
+# The paths differ in f32 rounding (the flash kernel against the plain
+# chunked decode attention, batched against one-row products): held to
+# the f32 bound of the serve runs.  Attending to the zero keys behind the
+# encoder's, as the JAX package's decode does, is off by O(1) on the CPU
+# smoke model (tests/test_torch_encdec.py)
+TEACHER_STEPS, TEACHER_RTOL = 8, 1e-3
+
+
+def teacher_forced(s, cfg, params, spec: ServeSpec) -> dict:
+    """``cfg`` (f32) fed SERVE_BATCH prompts of ``spec.prompt`` +
+    TEACHER_STEPS tokens (numpy seed 0) beside the serve run's frames: the
+    prefill of the first ``spec.prompt`` tokens seated in a
+    ``spec.max_seq`` cache, then a decode step at each true next token;
+    each step's logits against ``train_forward`` over all the tokens."""
+    dev = param_device(s, params)
+    P = spec.prompt
+    batch = serve_batch(cfg, SERVE_BATCH, P + TEACHER_STEPS, 0, dev,
+                        spec.frames)
+    tok = batch["tokens"]
+    model = s.get_model(cfg, dev)
+    errs, worst_abs = [], 0.0
+    with torch.inference_mode():
+        full, _ = model.train_forward(params, batch)
+        logits, cache = model.prefill(params, dict(batch, tokens=tok[:, :P]))
+        cache = s.seat(model.init_cache(SERVE_BATCH, spec.max_seq), cache)
+        require(int(cache["xlen"][0]) == spec.frames < spec.max_seq,
+                f"teacher forcing: encoder length {int(cache['xlen'][0])}")
+        steps = [(logits, full[:, P - 1])]
+        for i in range(P, P + TEACHER_STEPS):
+            lg, cache = s.encdec.step_logits(cfg, params, cache,
+                                             tok[:, i:i + 1])
+            steps.append((lg[:, 0], full[:, i]))
+        for got, want in steps:
+            errs.append(rel_l2(got, want))
+            worst_abs = max(worst_abs, float((got - want).abs().max()))
+    require(max(errs) <= TEACHER_RTOL,
+            f"teacher forcing {cfg.name}: decode logits off train_forward's "
+            f"by {max(errs):.3g} (relative L2), over {TEACHER_RTOL}")
+    log(f"teacher forcing {cfg.name} f32 x {cfg.n_layers} + "
+        f"{cfg.n_encoder_layers}: {spec.frames} frames in a {spec.max_seq} "
+        f"cross cache, prefill of {P} tokens and {TEACHER_STEPS} decode "
+        f"steps fed the true tokens: logits against train_forward's, "
+        f"relative L2 a step {[f'{e:.3g}' for e in errs]} (limit "
+        f"{TEACHER_RTOL}), max abs {worst_abs:.3g}")
+    return {"rel_l2": errs, "max_abs": worst_abs, "limit": TEACHER_RTOL}
 
 
 PRIME_PROMPT = 2053   # a prime prompt length: the SSD runs Q 1, nc 2,053
@@ -1895,9 +2032,10 @@ def train_launches(cfg, passes: int) -> dict:
 
 
 def train_data(s, cfg):
-    dcfg = s.SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                             batch_size=TRAIN_BATCH, seed=0)
-    return lambda step: s.synthetic_batch(dcfg, step)
+    """The train launcher's data (``launch.train.build_data``):
+    TRAIN_BATCH x TRAIN_SEQ tokens of ``synthetic_batch`` (seed 0) a step,
+    and as many frames for an encoder-decoder."""
+    return s.build_data(cfg, TRAIN_BATCH, TRAIN_SEQ)
 
 
 def loss_and_grads(s, cfg, params, batch) -> tuple:
@@ -1932,7 +2070,7 @@ def kernel_path_grads(s, cfg, state, batch) -> dict:
                 f"{launches.get(name, 0)} times, want {n}")
     with torch.no_grad():
         plain, _ = s.get_model(cfg.replace(**TRAIN_PLAIN),
-                               params["embed"].device).loss_fn(params, batch)
+                               param_device(s, params)).loss_fn(params, batch)
     loss, plain = float(loss), float(plain)
     rel = abs(loss - plain) / abs(plain)
     require(np.isfinite(loss) and rel <= TRAIN_LOSS_RTOL,
@@ -2031,6 +2169,7 @@ def phase_train(s) -> dict:
         require(len(a) == len(b) and all(
             x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b)),
             "train: the restored state differs from the saved one")
+        del a, b            # else both states outlive the phase's later runs
         first.state = None
         second.run()
         mark(None)
@@ -2125,6 +2264,7 @@ def phase_train(s) -> dict:
         ssd_inputs(*ssd_shape, torch.bfloat16, 71))
     res["dense"] = dense_train(s)
     res["moe"] = moe_train(s)
+    res["encdec"] = encdec_train(s)
     res["flash_backward_ms"] = backward_ms(
         s.k, s.k.fa.flash_attention, s.k.fa_ref.flash_attention_ref,
         res["dense"].pop("qkv"))
@@ -2228,29 +2368,51 @@ def dense_train(s) -> dict:
 
 
 # deepseek-moe-16b at full width, cut to its first dense layer and two MoE
-# layers (about 1.68e9 parameters, 20 GB of f32 master and moments)
-MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = "deepseek-moe-16b", 3, 2
+# layers (about 1.68e9 parameters, 20 GB of f32 master and moments), on
+# synthetic tokens; seamless-m4t-large-v2 at full width and depth (24 + 24
+# layers, 2.03e9 parameters, 24.4 GB), with as many frames as tokens
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-moe-16b", 3
+ENCDEC_TRAIN_ARCH = "seamless-m4t-large-v2"
+TRAINER_STEPS = 2
+# the device memory such a run may take above what was allocated when it
+# began (the card holds 80 GB); past it the depth would have to be cut
+TRAINER_PEAK = 70e9
 
 
 def moe_train(s) -> dict:
-    """deepseek-moe-16b at full width, MOE_TRAIN_LAYERS layers, bf16: step
-    1's gradients and loss on the kernel path (``kernel_path_grads``: every
-    leaf's gradient finite and non-zero, the router's and the experts'
-    included), then a ``Trainer`` takes MOE_TRAIN_STEPS steps, launches
-    counted: loss, aux and gradient norm finite, aux above 0."""
-    dev = torch.device("cuda")
     cfg = s.get_config(MOE_TRAIN_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
-    data = train_data(s, cfg)
+    return trainer_run(s, cfg, train_data(s, cfg))
+
+
+def encdec_train(s) -> dict:
+    cfg = s.get_config(ENCDEC_TRAIN_ARCH)
+    return trainer_run(s, cfg, train_data(s, cfg))
+
+
+def trainer_run(s, cfg, data) -> dict:
+    """``cfg`` at full width, bf16: step 1's gradients and loss on the
+    kernel path (``kernel_path_grads``: every leaf's gradient finite and
+    non-zero -- a MoE router's and experts', an encoder-decoder's encoder
+    and cross attention included -- and the loss within TRAIN_LOSS_RTOL
+    of the plain path's), then a ``Trainer`` takes TRAINER_STEPS steps on
+    ``data``, launches counted: losses and gradient norms finite, step 1's
+    loss the kernel path's, a MoE's aux finite and above 0, the peak above
+    what was allocated before under TRAINER_PEAK."""
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     state = s.adamw_init(s.get_model(cfg, dev).init_params(
         torch.Generator(device=dev).manual_seed(0)))
     res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_encoder_layers,
            "state_bytes": s.state_nbytes(state),
            "step1": kernel_path_grads(s, cfg, state, data(0))}
     del state
     torch.cuda.empty_cache()
-    ckpt = os.path.join(WORK, "moe_train")
+    ckpt = os.path.join(WORK, "trainer_run")
     shutil.rmtree(ckpt, ignore_errors=True)
-    tr = s.Trainer(cfg, s.TrainerConfig(num_steps=MOE_TRAIN_STEPS,
+    tr = s.Trainer(cfg, s.TrainerConfig(num_steps=TRAINER_STEPS,
                                         ckpt_dir=ckpt, ckpt_every=0, seed=0),
                    s.AdamWConfig(**TRAIN_OCFG), data=data, device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -2259,30 +2421,39 @@ def moe_train(s) -> dict:
     torch.cuda.synchronize()
     launches = s.build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {k: v for k, v in train_launches(cfg, MOE_TRAIN_STEPS).items()
-            if v}
+    want = {k: v for k, v in train_launches(cfg, TRAINER_STEPS).items() if v}
     require({k: launches.get(k, 0) for k in want} == want,
             f"train {cfg.name}: launches {launches}, want {want}")
     log_ = tr.metrics_log
     for key in ("loss", "aux", "grad_norm"):
         vals = [m[key] for m in log_]
-        require(len(vals) == MOE_TRAIN_STEPS and all(np.isfinite(vals)),
+        require(len(vals) == TRAINER_STEPS and all(np.isfinite(vals)),
                 f"train {cfg.name}: {key} {vals}")
-    require(all(m["aux"] > 0 for m in log_),
+    require(not cfg.is_moe or all(m["aux"] > 0 for m in log_),
             f"train {cfg.name}: aux {[m['aux'] for m in log_]}")
+    plain = res["step1"]["plain_loss"]
+    require(abs(log_[0]["loss"] - plain) <= TRAIN_LOSS_RTOL * abs(plain),
+            f"train {cfg.name}: the Trainer's step 1 loss {log_[0]['loss']} "
+            f"against the plain path's {plain}")
+    require(peak - base <= TRAINER_PEAK,
+            f"train {cfg.name}: peak {peak} B, {peak - base} B above the "
+            f"{base} B allocated before, over {TRAINER_PEAK:.0f}")
     step_s = [m["step_time_s"] for m in log_]
     res.update({"losses": [m["loss"] for m in log_],
                 "aux": [m["aux"] for m in log_],
                 "grad_norm": [m["grad_norm"] for m in log_],
                 "step_s": step_s, "launches": launches, "peak_bytes": peak,
+                "allocated_before_bytes": base,
                 "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / x
                                  for x in step_s]})
-    log(f"train {cfg.name} x {cfg.n_layers} (1 dense, "
-        f"{cfg.n_layers - cfg.first_k_dense} MoE), bf16, {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ} tokens: {MOE_TRAIN_STEPS} Trainer steps, losses "
-        f"{res['losses']}, aux {res['aux']}, grad norms {res['grad_norm']}, "
-        f"step s {step_s}, peak {peak} B, state {res['state_bytes']} B, "
-        f"launches {launches}")
+    log(f"train {cfg.name} x {cfg.n_layers}"
+        + (f" + {cfg.n_encoder_layers} encoder layers"
+           if cfg.n_encoder_layers else "")
+        + f", bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: {TRAINER_STEPS} "
+        f"Trainer steps, losses {res['losses']}, aux {res['aux']}, grad "
+        f"norms {res['grad_norm']}, step s {step_s}, peak {peak} B ({base} "
+        f"B allocated before), state {res['state_bytes']} B, launches "
+        f"{launches}")
     del tr
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2292,6 +2463,62 @@ def moe_train(s) -> dict:
 # ---------------------------------------------------------------------------
 # timing at the main path's shapes
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phase examples: the port's quickstart and workflow-analysis examples on
+# the card, at their smoke sizes (the qwen1.5-0.5b smoke model; the
+# quickstart at EXAMPLE_STEPS steps), each trace read back
+# ---------------------------------------------------------------------------
+
+EXAMPLE_STEPS = 4
+# name: (arguments, train steps, serve_step records)
+EXAMPLES = {"torch_quickstart": (["--steps", str(EXAMPLE_STEPS)],
+                                 EXAMPLE_STEPS, 0),
+            "torch_workflow_analysis": ([], 20, 11)}
+
+
+def phase_examples(s) -> dict:
+    """Each example's ``main`` on the card (``--device cuda``, the trace
+    on the ``cuda`` encode backend) under a work directory of its own:
+    launch counts set to 0 before and read after (the model trains and
+    serves through the flash kernel; the finalize packs varints and
+    compresses timestamps on the card); its trace read back with the
+    step and serve-step records the example made."""
+    import importlib.util
+    out = {}
+    for name, (args, steps, serve_steps) in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        work = os.path.join(WORK, "examples", name)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.synchronize()
+        s.build.reset_launches()
+        t = time.monotonic()
+        rc = mod.main(args + ["--device", "cuda", "--encode-backend",
+                              BACKEND, "--work-dir", work])
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t
+        launches = s.build.launch_counts()
+        require(rc == 0, f"example {name} returned {rc}")
+        for kernel in ("flash_attention", "delta_zigzag", "uvarint_pack64"):
+            require(launches.get(kernel, 0) > 0,
+                    f"example {name}: {kernel} was not launched")
+        recs = list(s.TraceReader(os.path.join(work, "trace")
+                                  ).iter_records(0))
+        funcs = collections.Counter(r.func for r in recs)
+        require(funcs["step"] == steps and funcs["serve_step"] == serve_steps,
+                f"example {name}: trace reads back {funcs['step']} step and "
+                f"{funcs['serve_step']} serve_step records")
+        out[name] = {"s": secs, "records": len(recs),
+                     "functions": len(funcs), "launches": launches}
+        log(f"example {name} on the card: {secs:.2f} s, trace reads back "
+            f"{len(recs)} records of {len(funcs)} functions ({steps} step, "
+            f"{serve_steps} serve_step); launches {launches}")
+    shutil.rmtree(os.path.join(WORK, "examples"), ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3174,9 +3401,10 @@ def model_kernel_report(k, s, shapes: dict, launches: dict,
     with the launch counts of those runs' main paths (``launches``: arch
     -> counts; every run's count is kept in ``launches_by_run``).  Flash
     attention's row also carries hymba-1.5b's windowed shape
-    (``other_shape``) and llava-next-34b's (``family_shape``: GQA group 7,
-    3,904 keys); RMSNorm's deepseek-v2-lite-16b's latent norm at D 512
-    (``family_shape``).  The SSD scan's row also carries the prime
+    (``other_shape``), llava-next-34b's (``family_shape``: GQA group 7,
+    3,904 keys) and seamless-m4t-large-v2's encoder (``encdec_shape``: D
+    64, no causal mask); RMSNorm's deepseek-v2-lite-16b's latent norm at D
+    512 (``family_shape``).  The SSD scan's row also carries the prime
     prefill's shape (Q 1, in groups) and the memory checks of the kernels
     phase (``ssd_memory``)."""
     import torch.nn.functional as F
@@ -3239,8 +3467,18 @@ def model_kernel_report(k, s, shapes: dict, launches: dict,
     mw = torch.rand(mx.shape[-1], generator=torch.Generator(
         device="cuda").manual_seed(36), device="cuda")
     seen("rmsnorm", mx.shape, mla)
+    # flash attention at seamless-m4t-large-v2's encoder: D 64, no causal
+    # mask, 16 KV heads of 16
+    ed = "seamless-m4t-large-v2"
+    espec = next(sp for sp in SERVE_SPECS if sp.arch == ed)
+    ecfg = s.get_config(ed)
+    eq = randn((SERVE_BATCH, espec.frames, ecfg.n_heads, ecfg.hd), 37, bf)
+    ek = randn((SERVE_BATCH, espec.frames, ecfg.n_kv_heads, ecfg.hd), 38, bf)
+    ev = randn((SERVE_BATCH, espec.frames, ecfg.n_kv_heads, ecfg.hd), 39, bf)
+    seen("flash_attention", eq.shape, ed)
+    # name: [(arch, call, key in the row)]
     family = {
-        "flash_attention": (vlm, MeasuredCall(
+        "flash_attention": [(vlm, MeasuredCall(
             [list(vq.shape), list(vk.shape)], (vq, vk, vv), {},
             k.fa.flash_attention, k.fa_ref.flash_attention_ref,
             2 * (2 * vq.numel() + vk.numel() + vv.numel()),
@@ -3248,13 +3486,23 @@ def model_kernel_report(k, s, shapes: dict, launches: dict,
                 vS, True, 0), BF16_TENSOR_OPS_PER_S, 20, 1,
             lambda: F.scaled_dot_product_attention(
                 vq.transpose(1, 2), vk.transpose(1, 2), vv.transpose(1, 2),
-                is_causal=True, enable_gqa=True).transpose(1, 2))),
-        "rmsnorm": (mla, MeasuredCall(
+                is_causal=True, enable_gqa=True).transpose(1, 2)),
+            "family_shape"), (ed, MeasuredCall(
+                [list(eq.shape), list(ek.shape)], (eq, ek, ev),
+                {"causal": False}, k.fa.flash_attention,
+                k.fa_ref.flash_attention_ref,
+                2 * (2 * eq.numel() + ek.numel() + ev.numel()),
+                4 * SERVE_BATCH * ecfg.n_heads * ecfg.hd * attention_pairs(
+                    espec.frames, False, 0), BF16_TENSOR_OPS_PER_S, 20, 1,
+                lambda: F.scaled_dot_product_attention(
+                    eq.transpose(1, 2), ek.transpose(1, 2),
+                    ev.transpose(1, 2)).transpose(1, 2)), "encdec_shape")],
+        "rmsnorm": [(mla, MeasuredCall(
             [list(mx.shape)], (mx, mw), {"eps": mcfg.norm_eps}, k.rn.rmsnorm,
             k.rn_ref.rmsnorm_ref, 2 * 2 * mx.numel() + 4 * mw.numel(),
             4 * mx.numel(), CORE_OPS_PER_S, 200, 1,
             lambda: F.rms_norm(mx, (mx.shape[-1],), mw.to(bf),
-                               mcfg.norm_eps)))}
+                               mcfg.norm_eps)), "family_shape")]}
     # name: (source, TPU kernel, device kernel names, run of the launches,
     #        the main shape's MeasuredCall, hymba-1.5b's MeasuredCall)
     specs = {
@@ -3318,13 +3566,11 @@ def model_kernel_report(k, s, shapes: dict, launches: dict,
             # the f32 path (the CUDA-core kernel) at both serve shapes
             for arch, call in ((run, main_call), ("hymba-1.5b", other_call)):
                 f32_ms[f"{name} {arch}"] = call.f32_ms()
-        if name in family:
-            arch, call = family[name]
-            row["family_shape"] = {
+        for arch, call, key in family.get(name, ()):
+            row[key] = {
                 "arch": arch, "launches": launches[arch].get(name, 0),
                 **call.measure(kname, f"{name} at the {arch} serve shape")}
-            log(f"{name} at the {arch} serve shape bf16: "
-                f"{row['family_shape']}")
+            log(f"{name} at the {arch} serve shape bf16: {row[key]}")
         if name == "ssd_scan":
             row["prime_shape"] = {
                 "prompt": PRIME_PROMPT, "planned_groups": prime_call.per_call,
@@ -3381,8 +3627,10 @@ def main() -> int:
     from repro_torch.models.convert import flat_params
     from repro_torch.models.lm import prompt_len
     from repro_torch.serve import ServeEngine
-    from repro_torch.data import SyntheticConfig, synthetic_batch
+    from repro_torch.serve.engine import _seat
+    from repro_torch.models import encdec
     from repro_torch.launch.steps import cast_params, make_train_step
+    from repro_torch.launch.train import build_data
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.models.convert import tree_map
     from repro_torch.train import Trainer, TrainerConfig
@@ -3426,12 +3674,11 @@ def main() -> int:
                           TraceReader=TraceReader, Trainer=Trainer,
                           TrainerConfig=TrainerConfig,
                           AdamWConfig=AdamWConfig, adamw_init=adamw_init,
-                          SyntheticConfig=SyntheticConfig,
-                          synthetic_batch=synthetic_batch,
                           make_train_step=make_train_step,
                           cast_params=cast_params, tree_map=tree_map,
                           state_nbytes=state_nbytes, k=k,
-                          prompt_len=prompt_len,
+                          prompt_len=prompt_len, seat=_seat, encdec=encdec,
+                          build_data=build_data,
                           routes=RouteLog(model_layers.top_k))
     ev = SimpleNamespace(wl=workloads, bl=baselines, eb=eb, recorder=recorder,
                          build=_build, Recorder=recorder.Recorder,
@@ -3541,7 +3788,10 @@ def main() -> int:
                 serves[spec.arch] = phase_serve(srv, spec)
             prime = prime_prefill(srv, SERVE_SPECS[1])
         with Phase("serve_moe_mla_vlm"):
-            for spec in SERVE_SPECS[3:]:
+            for spec in SERVE_SPECS[3:6]:
+                serves[spec.arch] = phase_serve(srv, spec)
+        with Phase("serve_encdec"):
+            for spec in SERVE_SPECS[6:]:
                 serves[spec.arch] = phase_serve(srv, spec)
         with Phase("train"):
             train = phase_train(srv)
@@ -3553,7 +3803,7 @@ def main() -> int:
     serve_counts = {a: r["launches"] for a, r in serves.items()}
     serve_counts[f"{prime['arch']}@{PRIME_PROMPT}"] = prime["launches"]
     serve_counts[f"train {train['arch']}"] = train["launches"]
-    for run in ("dense", "moe"):
+    for run in ("dense", "moe", "encdec"):
         serve_counts[f"train {train[run]['arch']}"] = train[run]["launches"]
     log(f"main-path launches, phases 3-6: {launches}; serve runs: "
         f"{serve_counts}")
@@ -3602,12 +3852,15 @@ def main() -> int:
             require(call[0] in shapes[name],
                     f"{name}: the kernels phase checked {call[0]}, which "
                     f"no serve run gave it")
+    with Phase("examples"):
+        examples = phase_examples(srv)
     log("serve summary: " + json.dumps(
         {a: {k: v for k, v in r.items() if k != "top_kernels"}
          for a, r in serves.items()}))
     log("prime prefill summary: " + json.dumps(prime))
     log("multiproc summary: " + json.dumps(multiproc))
     log("evaluation summary: " + json.dumps(evaluation))
+    log("examples summary: " + json.dumps(examples))
 
     with Phase("report"):
         rows = kernel_report(k, p, shapes, launches, read_inputs,

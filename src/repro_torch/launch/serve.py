@@ -10,13 +10,18 @@ tokens/s; optionally trace the serving loop with the port's Recorder.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-moe-16b --smoke --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch seamless-m4t-large-v2 --smoke --device cpu
+
 Runs on the card unless ``--device cpu`` is given; without a card and
-without ``--device cpu`` it fails.  Every decoder-only family is ported
-(dense, MoE, MLA, SSM, hybrid, VLM); the encoder-decoder is refused.
-Weights are random, drawn from a ``torch.Generator`` seeded with 0 on the
-chosen device; prompts come from numpy seed 0, and then a VLM's
-``n_patches`` patch embeddings a prompt (the vision tower is a stub, as
-in the JAX package), normal at the token embeddings' scale 0.02.
+without ``--device cpu`` it fails.  Every family is ported (dense, MoE,
+MLA, SSM, hybrid, VLM, encoder-decoder).  Weights are random, drawn from a
+``torch.Generator`` seeded with 0 on the chosen device.  The prompts are
+the JAX package's launcher's (:func:`build_batch`): tokens from numpy seed
+0; a VLM's ``n_patches`` patch embeddings a prompt are zeros (the vision
+tower is a stub); an encoder-decoder's ``prompt_len`` frames a prompt (the
+speech frontend is a stub) are drawn from the same generator after the
+tokens.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -39,7 +44,7 @@ from ..serve import ServeEngine
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
-        description="Greedy serving of a decoder-only model with the port")
+        description="Greedy serving of a model with the port")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced smoke configuration")
@@ -55,19 +60,31 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def build_batch(cfg, batch: int, prompt_len: int) -> Dict[str, np.ndarray]:
+    """The prompt batch of the JAX package's launcher
+    (``launch/serve.py:38-46``): ``batch`` x ``prompt_len`` tokens from
+    numpy seed 0; zero patches for a VLM; for an encoder-decoder
+    ``prompt_len`` frames a prompt, normal, from the same generator after
+    the tokens."""
+    rng = np.random.RandomState(0)
+    out = {"tokens": rng.randint(0, cfg.vocab_size, size=(batch, prompt_len)
+                                 ).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["patches"] = np.zeros((batch, cfg.n_patches, cfg.d_model),
+                                  np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.randn(batch, prompt_len, cfg.d_model
+                                  ).astype(np.float32)
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     device = model_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = get_model(cfg, device)
     params = model.init_params(torch.Generator(device=device).manual_seed(0))
-    rng = np.random.RandomState(0)
-    batch = {"tokens": rng.randint(0, cfg.vocab_size,
-                                   size=(args.batch, args.prompt_len)
-                                   ).astype(np.int32)}
-    if cfg.family == "vlm":
-        batch["patches"] = (0.02 * rng.randn(
-            args.batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    batch = build_batch(cfg, args.batch, args.prompt_len)
 
     def run():
         eng = ServeEngine(cfg, params, max_seq=args.max_seq, device=device)

@@ -6,15 +6,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
         --steps 20 --batch 4 --seq 1024 --ckpt-dir ckpt
 
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-large-v2 --smoke --device cpu --steps 2
+
 Runs on the card unless ``--device cpu`` is given; without a card and
 without ``--device cpu`` it fails.  ``--smoke`` selects the reduced
-configuration so the run trains in CPU-minutes.  Every decoder-only
-family is ported (dense, MoE, MLA, SSM, hybrid, VLM; a VLM trains on the
-text alone, as ``synthetic_batch`` has no patches); the encoder-decoder is
-refused.  Data is ``synthetic_batch``; weights start from a generator
-seeded with 0 on the device, or from the newest checkpoint in
-``--ckpt-dir`` (default ``repro_train_ckpt`` under the temporary directory,
-which follows ``TMPDIR``).
+configuration so the run trains in CPU-minutes.  Every family is ported
+(dense, MoE, MLA, SSM, hybrid, VLM, encoder-decoder).  Data is the JAX
+package's launcher's (:func:`build_data`): ``synthetic_batch``, plus zero
+patches for a VLM and seeded frames for an encoder-decoder.  Weights start
+from a generator seeded with 0 on the device, or from the newest
+checkpoint in ``--ckpt-dir`` (default ``repro_train_ckpt`` under the
+temporary directory, which follows ``TMPDIR``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ import argparse
 import json
 import os
 import tempfile
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
 
 from ..configs import get_config, get_smoke_config
 from ..core import encode_backend
@@ -37,7 +42,7 @@ from ..train import Trainer, TrainerConfig
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.train",
-        description="Train a decoder-only model with the port")
+        description="Train a model with the port")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-trainable)")
@@ -61,12 +66,31 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def build_data(cfg, batch: int, seq: int) -> Callable[[int], Dict]:
+    """step -> batch, the JAX package's launcher's (``launch/train.py:
+    46-56``): ``synthetic_batch``; zero patches for a VLM; for an
+    encoder-decoder ``seq`` frames a sequence, normal, from numpy seed
+    ``step``."""
+    dcfg = SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                           batch_size=batch)
+
+    def data(step: int) -> Dict:
+        b = synthetic_batch(dcfg, step)
+        if cfg.family == "vlm":
+            b["patches"] = np.zeros((batch, cfg.n_patches, cfg.d_model),
+                                    np.float32)
+        if cfg.family == "encdec":
+            b["frames"] = np.random.RandomState(step).randn(
+                batch, seq, cfg.d_model).astype(np.float32)
+        return b
+    return data
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     device = model_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    dcfg = SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                           batch_size=args.batch)
+    data = build_data(cfg, args.batch, args.seq)
     tcfg = TrainerConfig(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
                          ckpt_every=args.ckpt_every,
                          async_ckpt=args.async_ckpt,
@@ -75,8 +99,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                        total_steps=args.steps)
 
     def run():
-        tr = Trainer(cfg, tcfg, ocfg, data=lambda s: synthetic_batch(dcfg, s),
-                     device=device)
+        tr = Trainer(cfg, tcfg, ocfg, data=data, device=device)
         res = tr.run()
         print(json.dumps({"result": res,
                           "loss_first": tr.metrics_log[0]["loss"],

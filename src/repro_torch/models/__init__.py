@@ -1,5 +1,5 @@
 """Model API of the port: the decoder-only families (dense, MoE, MLA, SSM,
-hybrid, VLM), on the card by default.
+hybrid, VLM) and the encoder-decoder (seamless), on the card by default.
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` bound to one device; its
 entry points take and return tensors on that device.  Without a CUDA card
@@ -13,12 +13,7 @@ from typing import Dict, Tuple
 import torch
 
 from .config import ModelConfig
-from . import lm
-
-# the ROADMAP slice that brings the last family
-_NOT_PORTED = (
-    (lambda c: c.n_encoder_layers > 0, "encoder-decoder (seamless)"),
-)
+from . import encdec, lm
 
 
 def model_device(device) -> torch.device:
@@ -34,39 +29,41 @@ def model_device(device) -> torch.device:
 
 
 class ModelAPI:
-    """init / forward / loss / prefill / decode of the decoder-only
-    families on one device."""
+    """init / forward / loss / prefill / decode of one model family on one
+    device: ``encdec`` when ``cfg.n_encoder_layers`` is set, else ``lm``
+    (the JAX package's ``models/__init__.py:18``)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        for refused, family in _NOT_PORTED:
-            if refused(cfg):
-                raise NotImplementedError(
-                    f"{cfg.name}: {family} is not ported to repro_torch yet "
-                    f"(ROADMAP queue 1, item 5)")
         self.cfg = cfg
         self.device = model_device(device)
+        self._m = encdec if cfg.n_encoder_layers else lm
 
     def init_params(self, gen: torch.Generator) -> Dict:
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
-        return lm.init_params(self.cfg, gen)
+        return self._m.init_params(self.cfg, gen)
 
     def train_forward(self, params, batch) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
-        return lm.train_forward(self.cfg, params, batch)
+        return self._m.train_forward(self.cfg, params, batch)
 
     def loss_fn(self, params, batch) -> Tuple[torch.Tensor, Dict]:
-        return lm.loss_fn(self.cfg, params, batch)
+        return self._m.loss_fn(self.cfg, params, batch)
 
     def prefill(self, params, batch):
-        return lm.prefill(self.cfg, params, batch)
+        return self._m.prefill(self.cfg, params, batch)
 
     def init_cache(self, batch: int, seq: int) -> Dict:
+        """Decode caches for ``seq`` positions; an encoder-decoder's cross
+        K/V get room for ``seq`` encoder positions too, as in the JAX
+        package."""
+        if self.cfg.n_encoder_layers:
+            return encdec.init_cache(self.cfg, batch, seq, seq, self.device)
         return lm.init_cache(self.cfg, batch, seq, self.device)
 
     def decode_step(self, params, cache, tokens):
-        return lm.decode_step(self.cfg, params, cache, tokens)
+        return self._m.decode_step(self.cfg, params, cache, tokens)
 
 
 def get_model(cfg: ModelConfig, device="cuda") -> ModelAPI:

@@ -3,13 +3,14 @@
 ``params_from_numpy`` takes the JAX package's parameter tree with numpy
 leaves -- ``jax.tree.map(np.asarray, ModelAPI.init_params(key))`` -- and
 returns the port's parameters: the same nested dicts, except that the
-stacked per-layer leaves under ``"layers"`` (leading axis = layer) become
-a list of per-layer dicts.  So ``tree["layers"]["attn"]["wq"][3]`` is the
-port's ``params["layers"][3]["attn"]["wq"]``, named ``layers.3.attn.wq``
-by :func:`flat_params`.  Dense weights keep their ``(d_in, d_out)``
-layout, expert weights their ``(E, d_in, d_out)``.  A MoE model's first
-dense layers (``first_0``, ...) are not stacked there and stay as they
-are; the stack holds the other layers.
+stacked per-layer leaves under ``"layers"`` (an encoder-decoder's
+``"enc_layers"`` and ``"dec_layers"``; leading axis = layer) become a list
+of per-layer dicts.  So ``tree["layers"]["attn"]["wq"][3]`` is the port's
+``params["layers"][3]["attn"]["wq"]``, named ``layers.3.attn.wq`` by
+:func:`flat_params`.  Dense weights keep their ``(d_in, d_out)`` layout,
+expert weights their ``(E, d_in, d_out)``.  A MoE model's first dense
+layers (``first_0``, ...) are not stacked there and stay as they are; the
+stack holds the other layers.
 
 bfloat16 leaves arrive as numpy arrays of ``ml_dtypes.bfloat16``; they
 are recognised by dtype name and carried bit for bit through a uint16
@@ -34,6 +35,17 @@ import torch
 
 from .config import ModelConfig
 from .lm import layer_kinds
+
+# the keys whose per-layer leaves the JAX package stacks
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def stacked_counts(cfg: ModelConfig) -> Dict[str, int]:
+    """Stacked key -> number of layers it holds, for ``cfg``'s family."""
+    if cfg.n_encoder_layers:
+        return {"enc_layers": cfg.n_encoder_layers,
+                "dec_layers": cfg.n_layers}
+    return {"layers": layer_kinds(cfg)[2]}
 
 
 def tensor_from_numpy(a, device, dtype: Optional[torch.dtype] = None
@@ -78,10 +90,11 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device,
     """JAX-package parameters as numpy leaves -> the port's parameters on
     ``device``; ``dtype`` (optional) casts every floating leaf."""
     out = {k: _convert(v, device, dtype) for k, v in tree.items()
-           if k != "layers"}
-    if "layers" in tree:
-        layers = _split_layers(tree["layers"], layer_kinds(cfg)[2])
-        out["layers"] = [_convert(lp, device, dtype) for lp in layers]
+           if k not in STACKED}
+    for key, n in stacked_counts(cfg).items():
+        if key in tree:
+            out[key] = [_convert(lp, device, dtype)
+                        for lp in _split_layers(tree[key], n)]
     return out
 
 
@@ -94,11 +107,11 @@ def _host(t: torch.Tensor):
 def tree_map(fn: Callable, *trees, in_layers: bool = False):
     """``fn(*leaves, in_layers)`` over trees of one structure (dicts and
     lists; a tuple is a leaf); ``in_layers`` tells whether the leaf lies
-    under ``"layers"``."""
+    under a stacked key (``STACKED``)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: tree_map(fn, *(t[k] for t in trees),
-                            in_layers=in_layers or k == "layers")
+                            in_layers=in_layers or k in STACKED)
                 for k in first}
     if isinstance(first, list):
         return [tree_map(fn, *(t[i] for t in trees), in_layers=in_layers)
@@ -136,11 +149,9 @@ def _stack_layers(layers: List[Dict], stack: Callable) -> Dict:
 
 def _reference_layout(params: Dict[str, Any], leaf: Callable,
                       stack: Callable) -> Dict[str, Any]:
-    out = {k: tree_map(lambda x, _: leaf(x), v)
-           for k, v in params.items() if k != "layers"}
-    if "layers" in params:
-        out["layers"] = _stack_layers(params["layers"], stack)
-    return out
+    return {k: _stack_layers(v, stack) if k in STACKED
+            else tree_map(lambda x, _: leaf(x), v)
+            for k, v in params.items()}
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:

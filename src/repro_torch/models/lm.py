@@ -30,8 +30,7 @@ dense ones included, runs under ``torch.utils.checkpoint`` (the JAX
 package checkpoints its scan body), so a backward pass recomputes each
 block's forward, kernels included.
 
-Encoder-decoder configurations are not ported yet (``models.get_model``
-refuses them).
+The encoder-decoder family is ``models/encdec.py``.
 """
 
 from __future__ import annotations

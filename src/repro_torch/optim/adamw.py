@@ -9,12 +9,13 @@ on the state's device: ``step`` is counted in int32 and widened to f32 for
 the schedule and the bias corrections.
 
 Parameter trees are the port's (``models/convert.py``): the per-layer
-leaves sit in a list under ``"layers"``, where the JAX package stacks them
+leaves sit in lists under ``"layers"`` (an encoder-decoder's
+``"enc_layers"`` and ``"dec_layers"``), where the JAX package stacks them
 along a leading layer axis.  Weight decay follows the JAX package's rule,
 ``ndim >= 2`` in its stacked layout (``adamw.py:81``): a per-layer leaf
 counts one dimension more than it has here, so every per-layer leaf is
 decayed -- norm scales, ``A_log``, ``dt_bias`` and ``D`` included -- and
-only the top-level 1-d leaves (``final_norm``) are not.
+only the top-level 1-d leaves (``final_norm``, ``enc_norm``) are not.
 
 ``adamw_update`` is functional: it builds new tensors and leaves the state
 it was given as it was, also when it raises.

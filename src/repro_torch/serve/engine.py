@@ -42,9 +42,12 @@ class ServeEngine:
         or MLA latent cache (no ``sliding_window``) holds ``max_seq``
         positions and no more, so a request whose last decode step would
         write past it is refused with ``ValueError`` before any prefill; a
-        VLM's prompt counts its patches.  Ring caches and SSM state decode
-        past ``max_seq``.  (The JAX package clamps the write and decodes on
-        over a corrupt cache.)
+        VLM's prompt counts its patches, an encoder-decoder's its target
+        tokens only.  Ring caches and SSM state decode past ``max_seq``.
+        (The JAX package clamps the write and decodes on over a corrupt
+        cache.)  An encoder-decoder's cross K/V hold ``max_seq`` encoder
+        positions, so longer ``frames`` are refused before any prefill too
+        (the JAX package fails there on a shape).
         """
         B = batch["tokens"].shape[0]
         S = prompt_len(self.cfg, batch)
@@ -55,6 +58,12 @@ class ServeEngine:
                 f"tokens need {last} cache positions, but max_seq is "
                 f"{self.max_seq} and the KV cache is not a ring "
                 f"(no sliding_window)")
+        if self.cfg.n_encoder_layers \
+                and batch["frames"].shape[1] > self.max_seq:
+            raise ValueError(
+                f"{self.cfg.name}: {batch['frames'].shape[1]} encoder frames "
+                f"do not fit the cross-attention cache of max_seq "
+                f"{self.max_seq} positions")
         t0 = time.perf_counter()
         logits, pf_cache = self.model.prefill(self.params, batch)
         cache = _seat(self.model.init_cache(B, self.max_seq), pf_cache)
@@ -81,13 +90,16 @@ def _bounded_kv(cfg: ModelConfig) -> bool:
 
 def _seat(cache, pf_cache):
     """Copy the prefill caches (KV or latent, SSM state and conv tail, the
-    first dense layers' too) into the preallocated max_seq decode cache,
-    in place (the JAX package builds a new tree,
-    ``serve/engine.py:52-71``)."""
-    for dst, src in zip(cache["first"] + cache["layers"],
-                        pf_cache["first"] + pf_cache["layers"]):
+    first dense layers' too, an encoder-decoder's cross K/V) into the
+    preallocated max_seq decode cache, in place (the JAX package builds a
+    new tree, ``serve/engine.py:52-71``), with ``pos`` and an
+    encoder-decoder's encoder length ``xlen``."""
+    for dst, src in zip(cache.get("first", []) + cache["layers"],
+                        pf_cache.get("first", []) + pf_cache["layers"]):
         _copy_leaves(dst, src)
-    cache["pos"] = pf_cache["pos"].clone()
+    for name in ("pos", "xlen"):
+        if name in pf_cache:
+            cache[name] = pf_cache[name].clone()
     return cache
 
 
@@ -99,9 +111,11 @@ def _copy_leaves(dst: Dict, src: Dict) -> None:
         elif s.shape == d.shape:
             d.copy_(s)
         else:
-            # sequence-axis mismatch: place the prompt at the cache head
-            # (k/v: seq axis ndim-3; c/kr and conv: ndim-2).  As in the JAX
-            # package, a prompt shorter than conv_width - 1 puts its conv
-            # tail at the head of the window, not beside the next token.
-            ax = d.dim() - 3 if name in ("k", "v") else d.dim() - 2
+            # sequence-axis mismatch: place the prompt (or the encoder's
+            # K/V) at the cache head (k/v/xk/xv: seq axis ndim-3; c/kr and
+            # conv: ndim-2).  As in the JAX package, a prompt shorter than
+            # conv_width - 1 puts its conv tail at the head of the window,
+            # not beside the next token.
+            ax = d.dim() - 3 if name in ("k", "v", "xk", "xv") \
+                else d.dim() - 2
             d.narrow(ax, 0, s.shape[ax]).copy_(s)

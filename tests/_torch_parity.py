@@ -1,10 +1,12 @@
-"""Shared helpers of the decoder-family parity tests
-(``tests/test_torch_{moe,mla,vlm}.py``): the JAX package's outputs for a
-smoke configuration, and the port's held against them on the CPU.
+"""Shared helpers of the family parity tests
+(``tests/test_torch_{moe,mla,vlm,encdec}.py``): the JAX package's outputs
+for a smoke configuration, and the port's held against them on the CPU.
 
 The JAX package's randomly initialised parameters are carried across with
-``params_from_numpy``.  Tokens come from numpy seed 1 and a VLM's patch
-embeddings from seed 2.  Tolerances: f32 1e-4 for logits, aux and every
+``params_from_numpy``.  Tokens come from numpy seed 1, a VLM's patch
+embeddings from seed 2 and an encoder-decoder's ``MAX_SEQ`` frames from
+seed 3 (as many as the decode cache holds: there the JAX package's decode
+attends to the encoder and nothing else).  Tolerances: f32 1e-4 for logits, aux and every
 cache leaf, as ``tests/test_kernels.py``; the loss within 1e-5 and every
 gradient leaf within relative L2 1e-4 of ``jax.grad``, as
 ``tests/test_torch_train.py``.
@@ -37,15 +39,20 @@ def close(got: torch.Tensor, want, tol: float = TOL) -> None:
                                atol=tol, rtol=tol)
 
 
-def make_batch(cfg, S: int, labels: bool = False) -> dict:
+def make_batch(cfg, S: int, labels: bool = False, s_enc: int = MAX_SEQ
+               ) -> dict:
     """B prompts of S tokens (numpy seed 1); a VLM's n_patches patch
-    embeddings (seed 2) go before them."""
+    embeddings (seed 2) go before them; an encoder-decoder's ``s_enc``
+    frames (seed 3) go beside them."""
     tok = np.random.RandomState(1).randint(0, cfg.vocab_size,
                                            size=(B, S)).astype(np.int32)
     batch = {"tokens": tok}
     if cfg.family == "vlm":
         batch["patches"] = np.random.RandomState(2).randn(
             B, cfg.n_patches, cfg.d_model).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = np.random.RandomState(3).randn(
+            B, s_enc, cfg.d_model).astype(np.float32)
     if labels:
         batch["labels"] = np.roll(tok, -1, axis=1)
     return batch
@@ -81,9 +88,9 @@ def jax_reference(arch: str, S: int, **replace) -> dict:
 
 
 def close_caches(got: dict, want: dict) -> None:
-    """Every leaf of the port's caches (``first`` and per-layer
-    ``layers``) against the JAX package's (``first`` a list, ``layers``
-    stacked)."""
+    """Every leaf of the port's caches (``first``, where the family has
+    it, and per-layer ``layers``) against the JAX package's (``first`` a
+    list, ``layers`` stacked)."""
     def walk(g, w, pick):
         assert set(g) == set(w)
         for name, leaf in g.items():
@@ -91,8 +98,8 @@ def close_caches(got: dict, want: dict) -> None:
                 walk(leaf, w[name], pick)
             else:
                 close(leaf, pick(w[name]))
-    assert len(got["first"]) == len(want["first"])
-    for g, w in zip(got["first"], want["first"]):
+    assert len(got.get("first", [])) == len(want.get("first", []))
+    for g, w in zip(got.get("first", []), want.get("first", [])):
         walk(g, w, lambda a: a)
     for i, g in enumerate(got["layers"]):
         walk(g, want["layers"], lambda a, i=i: a[i])

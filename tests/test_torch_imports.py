@@ -17,9 +17,10 @@ _PORT = os.path.join(_REPO, "src", "repro_torch")
 
 
 def _sources():
-    paths = [os.path.join(_REPO, "chip_smoke.py"),
-             os.path.join(_REPO, "examples",
-                          "torch_constant_trace_scaling.py")]
+    paths = [os.path.join(_REPO, "chip_smoke.py")] + [
+        os.path.join(_REPO, "examples", f"torch_{name}.py")
+        for name in ("constant_trace_scaling", "quickstart",
+                     "workflow_analysis")]
     for root, _dirs, files in os.walk(_PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -61,6 +62,7 @@ def test_recorder_import_leaves_jax_unloaded():
             "repro_torch.traceserve, repro_torch.launch.traceserve, "
             "repro_torch.models, repro_torch.models.convert, "
             "repro_torch.models.layers, repro_torch.models.lm, "
+            "repro_torch.models.encdec, "
             "repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.configs, repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.ssd_scan, "

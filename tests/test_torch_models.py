@@ -15,6 +15,9 @@ falls to Q = 1), 32 (Q = 8, 4 chunks) and 2 (shorter than the conv
 window).  Tolerance f32 1e-4, as ``tests/test_kernels.py:101``.
 """
 
+import sys
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,9 +28,13 @@ from repro.configs import get_smoke_config as jax_smoke
 from repro.models import get_model as jax_model
 from repro.serve.engine import _seat as jax_seat
 from repro_torch.configs import all_arch_names, get_config, get_smoke_config
+from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import train as train_cli
 from repro_torch.models import get_model
 from repro_torch.models import layers as TL
-from repro_torch.models.convert import flat_params, params_from_numpy
+from repro_torch.models.convert import (flat_params, params_from_numpy,
+                                        stacked_counts)
+from repro_torch.models.lm import prompt_len
 from repro_torch.serve.engine import _seat
 
 SSM_ARCHS = ["mamba2-370m", "hymba-1.5b"]
@@ -362,13 +369,103 @@ NEW_ARCHS = ["deepseek-moe-16b", "deepseek-v2-lite-16b", "llava-next-34b"]
 
 
 def test_every_arch_is_ported_or_refused():
+    """Every configuration is held to the JAX package: here, in
+    tests/test_torch_{moe,mla,vlm}.py or in tests/test_torch_encdec.py;
+    none is refused."""
     assert sorted(ARCHS + NEW_ARCHS + ENCDEC_ARCHS) == sorted(all_arch_names())
 
 
-@pytest.mark.parametrize("arch", ENCDEC_ARCHS)
-def test_other_families_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        get_model(get_smoke_config(arch), "cpu")
+@pytest.mark.parametrize("arch", sorted(all_arch_names()))
+def test_every_configuration_builds_on_the_cpu(arch):
+    """``get_model`` builds every configuration, full and smoke; the smoke
+    model's parameters have the JAX package's stacks, its prefill gives
+    finite logits, and without a card the default device raises."""
+    assert get_model(get_config(arch), "cpu").device.type == "cpu"
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg, "cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    counts = stacked_counts(cfg)
+    assert {k: len(params[k]) for k in counts} == counts
+    batch = serve_cli.build_batch(cfg, 2, 5)
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, batch)
+    assert logits.shape == (2, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert cache["pos"].tolist() == [prompt_len(cfg, batch)] * 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            get_model(cfg)
+
+
+def _reference_serve_batch(monkeypatch, arch: str, batch: int,
+                           prompt: int) -> dict:
+    """The batch ``repro.launch.serve`` builds for ``arch --smoke``: its
+    ``main`` runs with the engine and the model stubbed out."""
+    import repro.launch.serve as ref_serve
+    seen = {}
+
+    class Engine:
+        def __init__(self, cfg, params, max_seq):
+            pass
+
+        def generate(self, b, n_new):
+            seen.update(b)
+            return np.zeros((b["tokens"].shape[0], n_new), np.int32)
+    monkeypatch.setattr(ref_serve, "ServeEngine", Engine)
+    monkeypatch.setattr(ref_serve, "get_model", lambda cfg: SimpleNamespace(
+        init_params=lambda key: None))
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", arch, "--smoke", "--batch", str(batch),
+        "--prompt-len", str(prompt)])
+    ref_serve.main()
+    return seen
+
+
+def _reference_train_data(monkeypatch, arch: str, batch: int, seq: int):
+    """The data function ``repro.launch.train`` gives its Trainer for
+    ``arch --smoke``: its ``main`` runs with the Trainer stubbed out."""
+    import repro.launch.train as ref_train
+    seen = {}
+
+    class Trainer:
+        def __init__(self, cfg, tcfg, ocfg, data):
+            seen["data"] = data
+            self.metrics_log = [{"loss": 0.0}]
+
+        def run(self):
+            return {}
+    monkeypatch.setattr(ref_train, "Trainer", Trainer)
+    monkeypatch.setattr(sys, "argv", [
+        "train", "--arch", arch, "--smoke", "--batch", str(batch), "--seq",
+        str(seq)])
+    ref_train.main()
+    return seen["data"]
+
+
+@pytest.mark.parametrize("launcher", ["serve", "train"])
+@pytest.mark.parametrize("arch", sorted(all_arch_names()))
+def test_launcher_batches_are_the_reference_recipe(arch, launcher,
+                                                   monkeypatch, capsys):
+    """Each launcher of the port feeds the model what the JAX package's
+    launcher feeds it for the same command line: tokens, a VLM's zero
+    patches, an encoder-decoder's seeded frames (serve: after the tokens
+    from numpy seed 0; train: numpy seed ``step``)."""
+    cfg = get_smoke_config(arch)
+    if launcher == "serve":
+        got = [serve_cli.build_batch(cfg, 3, 7)]
+        want = [_reference_serve_batch(monkeypatch, arch, 3, 7)]
+    else:
+        ref = _reference_train_data(monkeypatch, arch, 3, 7)
+        port = train_cli.build_data(cfg, 3, 7)
+        got, want = [port(s) for s in (0, 5)], [ref(s) for s in (0, 5)]
+    capsys.readouterr()
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        assert ("frames" in w) == (cfg.family == "encdec")
+        assert ("patches" in w) == (cfg.family == "vlm")
+        for key in w:
+            assert g[key].dtype == w[key].dtype, key
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
