@@ -159,7 +159,33 @@ csrc`` and then runs, in order:
                 before each job; then Fig 10, the record-path cost of no
                 tool, Recorder, Recorder-old and Darshan-like (one rank,
                 1,000 iterations, best of 3), printed only;
-11b. examples -- ``examples/torch_quickstart.py`` (4 steps) and
+11a. sharded -- the sharding layer's real path on the card: a one-rank
+                NCCL group and a (1, 1) ("data", "model") mesh;
+                ``launch.steps.build_cell`` with full parameters drives
+                qwen3-32b x 16 (bf16, a prefill of 4 x 1,024 tokens and
+                32 greedy decode steps), mamba2-370m x 48 (the same with
+                4 x 2,048) and qwen1.5-0.5b x 24 (2 train steps, ZeRO-1
+                over the one-rank data axis) as DTensors, each held
+                against the unsharded path on the same weights and inputs
+                on the card: tokens, logits, losses and new master
+                bit-identical, and as many flash attention, RMSNorm and
+                SSD launches (counts set to 0 before each path), both
+                paths timed; first, RMSNorm's host cost a call through
+                its operator against its wrapper;
+11b. dryrun  -- ``launch.dryrun`` on a fake 256-rank group under
+                ``FakeTensorMode`` on ``cuda``: every applicable cell on
+                the single-pod mesh and qwen3-32b and deepseek-moe-16b on
+                the multi-pod one, in worker processes; each prints its
+                status, seconds, per-chip argument and peak-estimate
+                bytes, FLOPs a chip against ``model_flops_per_chip``,
+                collective bytes by kind, H100 roofline terms and
+                bottleneck, whether it fits in 80 GB and the gathers of
+                the port's own layout it includes; no cell may fail and
+                ``long_500k`` is a SKIP for the eight full-attention
+                architectures; four cells run again on ``cpu`` fake
+                tensors must give the same FLOPs and collective bytes,
+                and but in decode the same peak;
+11c. examples -- ``examples/torch_quickstart.py`` (4 steps) and
                 ``examples/torch_workflow_analysis.py`` on the card with the
                 ``cuda`` encode backend, their traces read back;
 12. report   -- the kernels' launch counts from phases 3-6 and from the
@@ -2478,6 +2504,289 @@ EXAMPLES = {"torch_quickstart": (["--steps", str(EXAMPLE_STEPS)],
             "torch_workflow_analysis": ([], 20, 11)}
 
 
+# ---------------------------------------------------------------------------
+# phase 11a: the sharded path on a one-rank mesh; 11b: the dry run
+# ---------------------------------------------------------------------------
+
+# (arch, layers, prompt) of the sharded serve runs; SHARDED_NEW greedy
+# steps each, SERVE_BATCH prompts
+SHARDED_SERVES = (("qwen3-32b", 16, 1024), ("mamba2-370m", 48, 2048))
+SHARDED_NEW = 32
+SHARDED_TRAIN_ARCH, SHARDED_TRAIN_STEPS = "qwen1.5-0.5b", 2
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def full(t):
+    """The whole tensor of a DTensor (plain tensors as they are)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t
+
+
+def counted(s, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: (its result, seconds, the model kernels' launches)."""
+    s.build.reset_launches()
+    out, sec = timed(fn)
+    got = s.build.launch_counts()
+    return out, sec, {k: got.get(k, 0) for k in MODEL_KERNELS}
+
+
+def sharded_serve(s, mesh, arch: str, layers: int, prompt: int) -> dict:
+    """Prefill and SHARDED_NEW greedy steps, unsharded and through
+    ``build_cell`` on ``mesh``: the same tokens, logits and launches."""
+    dev = torch.device("cuda")
+    cfg = cut_layers(s.get_config(arch), layers)
+    model = s.get_model(cfg, dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    batch = serve_batch(cfg, SERVE_BATCH, prompt, 0, dev)
+    max_seq = prompt + SHARDED_NEW + 1
+    B = SERVE_BATCH
+
+    def first(logits):
+        return torch.argmax(logits[:, :cfg.vocab_size], dim=-1).to(
+            torch.int32)[:, None]
+
+    def plain_prefill():
+        with torch.no_grad():
+            return model.prefill(params, batch)
+
+    def plain_decode(cache, nxt):
+        toks = []
+        with torch.no_grad():
+            for _ in range(SHARDED_NEW):
+                nxt, cache = model.decode_step(params, cache, nxt)
+                toks.append(nxt)
+        return torch.cat(toks, dim=1)
+
+    (p_logits, pf), p_pre_s, p_pre_n = counted(s, plain_prefill)
+    cache = s.seat(model.init_cache(B, max_seq), pf)
+    p_toks, p_dec_s, p_dec_n = counted(
+        s, lambda: plain_decode(cache, first(p_logits)))
+    del pf, cache
+
+    tb = {"tokens": torch.as_tensor(batch["tokens"], device=dev)}
+    step, args, _ = s.build_cell(cfg, s.ShapeSpec("p", prompt, B, "prefill"),
+                                 mesh, params=params, inputs={"batch": tb})
+    (d_logits, pf), d_pre_s, d_pre_n = counted(s, lambda: step(*args))
+    d_logits = full(d_logits)
+    pf = s.map_leaves(lambda _, t: full(t), pf)
+    del step, args
+    cache = s.seat(model.init_cache(B, max_seq), pf)
+    del pf
+    step, args, _ = s.build_cell(
+        cfg, s.ShapeSpec("d", max_seq, B, "decode"), mesh, params=params,
+        inputs={"cache": cache, "tokens": first(d_logits)})
+    p_args, cache_d, tok = args
+
+    def sharded_decode():
+        nonlocal cache_d
+        toks, t = [], tok
+        for _ in range(SHARDED_NEW):
+            t, cache_d = step(p_args, cache_d, t)
+            toks.append(full(t))
+        return torch.cat(toks, dim=1)
+    d_toks, d_dec_s, d_dec_n = counted(s, sharded_decode)
+    res = {"arch": arch, "layers": layers, "prompt": prompt,
+           "logits_identical": bool(torch.equal(d_logits, p_logits)),
+           "logits_max_abs": float((d_logits - p_logits).abs().max()),
+           "tokens_identical": bool(torch.equal(d_toks, p_toks)),
+           "prefill_s": {"sharded": d_pre_s, "unsharded": p_pre_s},
+           "decode_s_per_step": {"sharded": d_dec_s / SHARDED_NEW,
+                                 "unsharded": p_dec_s / SHARDED_NEW},
+           "launches": {"sharded": {k: d_pre_n[k] + d_dec_n[k]
+                                    for k in MODEL_KERNELS},
+                        "unsharded": {k: p_pre_n[k] + p_dec_n[k]
+                                      for k in MODEL_KERNELS}}}
+    log(f"sharded {arch} x {layers}: {json.dumps(res)}")
+    require(res["logits_identical"] and res["tokens_identical"],
+            f"sharded {arch}: logits or tokens differ from the unsharded "
+            f"path ({res['logits_max_abs']})")
+    require(res["launches"]["sharded"] == res["launches"]["unsharded"],
+            f"sharded {arch}: launches {res['launches']}")
+    require(any(res["launches"]["sharded"].values()),
+            f"sharded {arch}: no model kernel launched")
+    del params, p_args, cache_d, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_train(s, mesh) -> dict:
+    """SHARDED_TRAIN_STEPS steps of qwen1.5-0.5b at full depth, unsharded
+    (``make_train_step``) and through ``build_cell`` with ZeRO-1 over the
+    one-rank data axis, from the same state on the same data."""
+    dev = torch.device("cuda")
+    cfg = s.get_config(SHARDED_TRAIN_ARCH)
+    data = train_data(s, cfg)
+    params = s.get_model(cfg, dev).init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    ocfg = s.AdamWConfig(**TRAIN_OCFG)
+
+    def batch(i):
+        return {k: torch.as_tensor(v, device=dev) for k, v in data(i).items()}
+
+    plain = s.make_train_step(cfg, ocfg, device=dev)
+    state = s.adamw_init(params)
+
+    def run(step_fn, st, put):
+        """The steps, each timed: (state, losses, seconds a step)."""
+        losses, secs = [], []
+        for i in range(SHARDED_TRAIN_STEPS):
+            (st, m), sec = timed(lambda: step_fn(st, put(batch(i))))
+            losses.append(float(full(m["loss"])))
+            secs.append(sec)
+        return st, losses, secs
+
+    (p_state, p_losses, p_s), _, p_n = counted(
+        s, lambda: run(plain, state, lambda b: b))
+    p_master = s.flat_params(p_state["master"])
+    del p_state
+
+    step, args, meta = s.build_cell(
+        cfg, s.ShapeSpec("t", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh,
+        ocfg=ocfg, params=params, inputs={"batch": batch(0)})
+
+    (d_state, d_losses, d_s), _, d_n = counted(s, lambda: run(
+        step, args[0], lambda b: s.build_cell_batch(b, meta, mesh)))
+    d_master = {k: full(v) for k, v in s.flat_params(
+        d_state["master"]).items()}
+    differ = {k: float((d_master[k] - p_master[k]).abs().max())
+              for k in p_master if not torch.equal(d_master[k], p_master[k])}
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "steps": SHARDED_TRAIN_STEPS,
+           "losses": {"sharded": d_losses, "unsharded": p_losses},
+           "master_leaves": len(p_master), "master_differ": differ,
+           # step 1 of the unsharded path, the first, pays the warm-up
+           "step_s": {"sharded": d_s, "unsharded": p_s},
+           "launches": {"sharded": d_n, "unsharded": p_n}}
+    log(f"sharded train {cfg.name} x {cfg.n_layers}: {json.dumps(res)}")
+    require(d_losses == p_losses and not differ,
+            f"sharded train {cfg.name}: losses {d_losses} vs {p_losses}, "
+            f"master differs at {differ}")
+    require(d_n == p_n and d_n["flash_attention"] > 0,
+            f"sharded train {cfg.name}: launches {res['launches']}")
+    del d_state, args, d_master, p_master
+    torch.cuda.empty_cache()
+    return res
+
+
+OP_DISPATCH_CALLS = 2000
+
+
+def operator_dispatch() -> dict:
+    """Host microseconds a call of RMSNorm through its operator
+    (``repro_torch::rmsnorm``, the model's path to the kernel) and through
+    its wrapper, at qwen3-32b's decode QK-norm shape (4, 1, 64, 128) bf16:
+    OP_DISPATCH_CALLS calls queued back to back, synchronised once, in the
+    order wrapper, operator, operator, wrapper."""
+    from repro_torch.kernels.rmsnorm import ops
+    x = torch.randn((4, 1, 64, 128), device="cuda", dtype=torch.bfloat16)
+    w = torch.ones(128, device="cuda", dtype=torch.float32)
+
+    def per_call(fn) -> float:
+        for _ in range(50):
+            fn(x, w, eps=1e-6)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        for _ in range(OP_DISPATCH_CALLS):
+            fn(x, w, eps=1e-6)
+        torch.cuda.synchronize()
+        return (time.monotonic() - t) / OP_DISPATCH_CALLS * 1e6
+    runs = [per_call(f) for f in (ops.rmsnorm, ops.rmsnorm_op,
+                                  ops.rmsnorm_op, ops.rmsnorm)]
+    res = {"wrapper_us": (runs[0] + runs[3]) / 2,
+           "operator_us": (runs[1] + runs[2]) / 2, "runs_us": runs}
+    log(f"operator dispatch, rmsnorm (4, 1, 64, 128) bf16: wrapper "
+        f"{res['wrapper_us']:.2f} us, operator {res['operator_us']:.2f} us "
+        f"a call (runs {runs})")
+    return res
+
+
+def phase_sharded(s) -> dict:
+    """Phase 11a (see the module docstring)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = s.make_debug_mesh(1, 1, device_type="cuda")
+        out = {arch: sharded_serve(s, mesh, arch, layers, prompt)
+               for arch, layers, prompt in SHARDED_SERVES}
+        out["train"] = sharded_train(s, mesh)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+DRYRUN_JOBS = 7
+DRYRUN_MULTI = ("qwen3-32b", "deepseek-moe-16b")
+# single-pod cells run again on cpu fake tensors: FLOPs and collective
+# bytes must not depend on the fake tensors' device, nor the peak but in
+# decode (on cuda ``lm.logits_f32`` writes f32 from the bf16 head without
+# an f32 copy of it)
+DRYRUN_CPU_CHECK = (("qwen3-32b", "prefill_32k"), ("qwen1.5-0.5b", "train_4k"),
+                    ("stablelm-1.6b", "decode_32k"),
+                    ("deepseek-moe-16b", "decode_32k"))
+
+
+def phase_dryrun(s) -> dict:
+    """Phase 11b (see the module docstring)."""
+    # shape by shape, so that the long train cells start first
+    cells = [(a, sh, mk, "cuda", False, False) for sh in s.SHAPES
+             for mk, archs in (("single", s.all_arch_names()),
+                               ("multi", DRYRUN_MULTI)) for a in archs]
+    out, on_cpu = {}, {}
+    for r in s.dryrun.run_cells(
+            [(a, sh, "single", "cpu", False, False)
+             for a, sh in DRYRUN_CPU_CHECK], DRYRUN_JOBS):
+        on_cpu[f"{r['arch']} {r['shape']} single"] = r
+    for r in s.dryrun.run_cells(cells, DRYRUN_JOBS):
+        log(s.dryrun.format_result(r))
+        key = f"{r['arch']} {r['shape']} {r['mesh']}"
+        require(r["status"] != "fail", f"dry run {key}: {r.get('error')}\n"
+                f"{r.get('traceback')}")
+        ok = s.applicable(s.get_config(r["arch"]), r["shape"])[0]
+        require((r["status"] == "ok") == ok, f"dry run {key}: {r['status']}")
+        out[key] = {k: r.get(k) for k in (
+            "status", "run_s", "memory", "flops_per_chip",
+            "model_flops_per_chip", "fits_80gb", "departures")}
+        if r["status"] == "ok":
+            coll = r["collectives"]
+            out[key]["collectives"] = dict(
+                {k: coll[k]["bytes"] for k in s.dryrun.step_analysis.KINDS},
+                total=coll["total_bytes"], cross_node=coll["cross_node_bytes"])
+            out[key]["roofline"] = {k: r["roofline"][k] for k in (
+                "t_compute_s", "t_memory_s", "t_collective_s",
+                "bottleneck")}
+    n_ok = sum(v["status"] == "ok" for v in out.values())
+    n_skip = sum(v["status"] == "skip" for v in out.values())
+    require(n_ok + n_skip == len(cells), f"dry run: {len(out)} cells")
+    for key, r in on_cpu.items():
+        same = {"flops": r["flops_per_chip"] == out[key]["flops_per_chip"],
+                "collectives": r["collectives"]["total_bytes"]
+                == out[key]["collectives"]["total"]}
+        if s.SHAPES[r["shape"]].kind != "decode":
+            same["peak"] = r["memory"] == out[key]["memory"]
+        log(f"dry run {key}: cuda and cpu fake tensors agree: {same}")
+        require(all(same.values()), f"dry run {key}: cpu {r['memory']}, "
+                f"{r['flops_per_chip']}; cuda {out[key]}")
+    log(f"dry run: {n_ok} cells ok, {n_skip} skipped, on a fake 256-rank "
+        f"(512 for the multi-pod cells) mesh")
+    return out
+
+
 def phase_examples(s) -> dict:
     """Each example's ``main`` on the card (``--device cuda``, the trace
     on the ``cuda`` encode backend) under a work directory of its own:
@@ -3637,6 +3946,12 @@ def main() -> int:
     from repro_torch.train.loop import state_nbytes
     from repro_torch import workloads
     from repro_torch.core import baselines
+    from repro_torch.configs import all_arch_names
+    from repro_torch.distributed.sharding import map_leaves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.shapes import SHAPES, ShapeSpec, applicable
+    from repro_torch.launch.steps import build_cell, build_cell_batch
 
     k = SimpleNamespace(de=de_ops, de_ref=de_ref, gs=gs_ops, gs_ref=gs_ref,
                         fa=fa_ops, fa_ref=fa_ref, rn=rn_ops, rn_ref=rn_ref,
@@ -3679,7 +3994,13 @@ def main() -> int:
                           state_nbytes=state_nbytes, k=k,
                           prompt_len=prompt_len, seat=_seat, encdec=encdec,
                           build_data=build_data,
-                          routes=RouteLog(model_layers.top_k))
+                          routes=RouteLog(model_layers.top_k),
+                          build_cell=build_cell,
+                          build_cell_batch=build_cell_batch,
+                          ShapeSpec=ShapeSpec, SHAPES=SHAPES,
+                          applicable=applicable, map_leaves=map_leaves,
+                          make_debug_mesh=make_debug_mesh, dryrun=dryrun,
+                          all_arch_names=all_arch_names)
     ev = SimpleNamespace(wl=workloads, bl=baselines, eb=eb, recorder=recorder,
                          build=_build, Recorder=recorder.Recorder,
                          RecorderConfig=recorder.RecorderConfig)
@@ -3797,6 +4118,9 @@ def main() -> int:
             train = phase_train(srv)
         with Phase("evaluation"):
             evaluation = phase_evaluation(ev, smi)
+        with Phase("sharded"):
+            dispatch = operator_dispatch()
+            sharded = phase_sharded(srv)
     finally:
         for mod, name, real in originals:
             setattr(mod, name, real)
@@ -3805,6 +4129,9 @@ def main() -> int:
     serve_counts[f"train {train['arch']}"] = train["launches"]
     for run in ("dense", "moe", "encdec"):
         serve_counts[f"train {train[run]['arch']}"] = train[run]["launches"]
+    for arch, r in sharded.items():
+        name = arch if arch != "train" else f"train {r['arch']}"
+        serve_counts[f"sharded {name}"] = r["launches"]["sharded"]
     log(f"main-path launches, phases 3-6: {launches}; serve runs: "
         f"{serve_counts}")
     for _mod, name in wrappers:
@@ -3852,6 +4179,8 @@ def main() -> int:
             require(call[0] in shapes[name],
                     f"{name}: the kernels phase checked {call[0]}, which "
                     f"no serve run gave it")
+    with Phase("dryrun"):
+        dry = phase_dryrun(srv)
     with Phase("examples"):
         examples = phase_examples(srv)
     log("serve summary: " + json.dumps(
@@ -3861,6 +4190,9 @@ def main() -> int:
     log("multiproc summary: " + json.dumps(multiproc))
     log("evaluation summary: " + json.dumps(evaluation))
     log("examples summary: " + json.dumps(examples))
+    log("sharded summary: " + json.dumps(sharded))
+    log("operator dispatch: " + json.dumps(dispatch))
+    log("dryrun summary (fake 256/512-rank mesh): " + json.dumps(dry))
 
     with Phase("report"):
         rows = kernel_report(k, p, shapes, launches, read_inputs,

@@ -108,3 +108,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       ctypes.c_float(1.0 / math.sqrt(D)), int(causal),
                       window, DTYPE_CODES[q.dtype])
     return out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int) -> torch.Tensor:
+    """:func:`flash_attention` as a PyTorch operator, the model's one path
+    to the kernel: a sharded model calls it on each rank's head group
+    (``local_map``), and under ``FakeTensorMode`` (the dry run) its fake
+    version gives the shape without launching."""
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -61,3 +61,17 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5
                       _build.ptr(w), _build.ptr(out), rows, d,
                       ctypes.c_float(eps), DTYPE_CODES[x.dtype])
     return out
+
+
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=())
+def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """:func:`rmsnorm` as a PyTorch operator, the model's one path to the
+    kernel: a sharded model calls it on each rank's shard (``local_map``),
+    and under ``FakeTensorMode`` (the dry run) its fake version gives the
+    shape without launching."""
+    return rmsnorm(x, w, eps=eps)
+
+
+@rmsnorm_op.register_fake
+def _(x, w, eps):
+    return torch.empty_like(x)

@@ -139,3 +139,22 @@ def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                       *b.stride()[:3], *c.stride()[:3], G,
                       DTYPE_CODES[x.dtype])
     return (y, h) if return_state else y
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def ssd_scan_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                dt: torch.Tensor, da: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan` with ``return_state`` as a PyTorch operator, the
+    model's one path to the kernel: a sharded model calls it on each
+    rank's shard (``local_map``), and under ``FakeTensorMode`` (the dry
+    run) its fake version gives the shapes without launching."""
+    return ssd_scan(x, b, c, dt, da, return_state=True)
+
+
+@ssd_scan_op.register_fake
+def _(x, b, c, dt, da):
+    B, _, _, nh, hd = x.shape
+    return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            torch.empty((B, nh, b.shape[-1], hd), dtype=torch.float32,
+                        device=x.device))

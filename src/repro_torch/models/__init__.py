@@ -62,8 +62,11 @@ class ModelAPI:
             return encdec.init_cache(self.cfg, batch, seq, seq, self.device)
         return lm.init_cache(self.cfg, batch, seq, self.device)
 
-    def decode_step(self, params, cache, tokens):
-        return self._m.decode_step(self.cfg, params, cache, tokens)
+    def decode_step(self, params, cache, tokens, **host):
+        """``host``: ``pos0`` (and an encoder-decoder's ``xlen``), the
+        cache positions known on the host, so that none is read from the
+        device."""
+        return self._m.decode_step(self.cfg, params, cache, tokens, **host)
 
 
 def get_model(cfg: ModelConfig, device="cuda") -> ModelAPI:

@@ -33,9 +33,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import shard
 from .config import ModelConfig
 from . import layers as L
-from .lm import _tokens, chunked_ce, logits_f32
+from .lm import chunked_ce, embed, logits_f32, mask_padding
 
 Params = Dict[str, Any]
 
@@ -55,21 +56,27 @@ def cross_attn_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 def cross_kv(p: Params, cfg: ModelConfig, enc_out: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, Se, _ = enc_out.shape
-    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(B, Se, cfg.n_heads,
-                                                       cfg.hd)
-    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(B, Se, cfg.n_heads,
-                                                       cfg.hd)
+    k = L.split_heads(enc_out @ p["wk"].to(enc_out.dtype), cfg.n_heads,
+                      cfg.hd)
+    v = L.split_heads(enc_out @ p["wv"].to(enc_out.dtype), cfg.n_heads,
+                      cfg.hd)
     return k, v
 
 
 def cross_attn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     B, Sq, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, Sq, cfg.n_heads, cfg.hd)
-    out = L.flash_attention_torch(q, k, v, causal=False,
-                                  q_chunk=cfg.attn_q_chunk,
-                                  kv_chunk=cfg.attn_kv_chunk)
-    return out.reshape(B, Sq, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+    q = L.split_heads(x @ p["wq"].to(x.dtype), cfg.n_heads, cfg.hd)
+    q, k, v = L._shard_qkv(cfg, q, k, v)
+
+    def attend(qq, kk, vv):
+        return L.chunked_attention(qq, kk, vv, causal=False,
+                                   q_chunk=cfg.attn_q_chunk,
+                                   kv_chunk=cfg.attn_kv_chunk)
+    out = L.sharded_attention(attend, q, k, v) if L.is_dtensor(q) \
+        else attend(q, k, v)
+    return shard(L.merge_heads(out) @ p["wo"].to(x.dtype), "batch", None,
+                 None)
 
 
 # -- blocks -------------------------------------------------------------------
@@ -130,7 +137,7 @@ def dec_block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     x = x + out
     h = L.apply_norm(x, p["lnx"], cfg)
     B = x.shape[0]
-    q = (h @ p["xattn"]["wq"].to(x.dtype)).reshape(B, 1, cfg.n_heads, cfg.hd)
+    q = L.split_heads(h @ p["xattn"]["wq"].to(x.dtype), cfg.n_heads, cfg.hd)
     xo = L.decode_attention(q, cache["xk"][:, :xlen], cache["xv"][:, :xlen],
                             xlen, kv_chunk=cfg.decode_kv_chunk)
     x = x + xo.reshape(B, 1, -1) @ p["xattn"]["wo"].to(x.dtype)
@@ -169,7 +176,10 @@ def encode(cfg: ModelConfig, params: Params, frames) -> torch.Tensor:
     """Frames (numpy or tensor, (B, S_enc, d_model)) -> the normed encoder
     output in ``cfg.dtype``."""
     dev = params["dec_embed"].device
-    x = torch.as_tensor(frames, device=dev).to(L.torch_dtype(cfg.dtype))
+    if not isinstance(frames, torch.Tensor):
+        frames = torch.as_tensor(frames, device=dev)
+    x = shard(frames.to(dev).to(L.torch_dtype(cfg.dtype)), "batch", None,
+              None)
     B, Se, _ = x.shape
     positions = _positions(B, Se, dev)
     remat = cfg.remat == "block" and torch.is_grad_enabled()
@@ -186,7 +196,8 @@ def _embed(cfg: ModelConfig, params: Params, tokens
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Target-token embeddings and their positions."""
     dev = params["dec_embed"].device
-    x = params["dec_embed"][_tokens(dev, tokens)].to(L.torch_dtype(cfg.dtype))
+    x = shard(embed(params["dec_embed"], tokens, L.torch_dtype(cfg.dtype)),
+              "batch", None, None)
     B, S = x.shape[:2]
     return x, _positions(B, S, dev)
 
@@ -285,13 +296,17 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, enc_seq: int,
                                device=device)}
 
 
-def step_logits(cfg: ModelConfig, params: Params, cache: Dict, tokens
+def step_logits(cfg: ModelConfig, params: Params, cache: Dict, tokens,
+                pos0: Optional[int] = None, xlen: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """The f32 logits (B, 1, padded_vocab) of one decode step at
     ``tokens`` (B, 1), and the caches with ``pos`` advanced (the
-    self-attention caches are written in place)."""
+    self-attention caches are written in place).  ``pos0`` and ``xlen``,
+    when given, are ``cache["pos"][0]`` and ``cache["xlen"][0]`` known on
+    the host (the dry run's fake tensors hold no values)."""
     pos = cache["pos"]
-    pos0, xlen = torch.stack([pos[0], cache["xlen"][0]]).tolist()
+    if pos0 is None or xlen is None:
+        pos0, xlen = torch.stack([pos[0], cache["xlen"][0]]).tolist()
     x, _ = _embed(cfg, params, tokens)
     new_caches = []
     for lp, lc in zip(params["dec_layers"], cache["layers"]):
@@ -302,11 +317,12 @@ def step_logits(cfg: ModelConfig, params: Params, cache: Dict, tokens
         "layers": new_caches, "pos": pos + 1, "xlen": cache["xlen"]}
 
 
-def decode_step(cfg: ModelConfig, params: Params, cache: Dict, tokens
+def decode_step(cfg: ModelConfig, params: Params, cache: Dict, tokens,
+                pos0: Optional[int] = None, xlen: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """One greedy decode step. tokens: (B, 1) -> (next (B, 1) int32,
     cache)."""
-    logits, cache = step_logits(cfg, params, cache, tokens)
+    logits, cache = step_logits(cfg, params, cache, tokens, pos0, xlen)
     # mask vocab padding, then greedy (encdec.py:244-247)
-    logits[..., cfg.vocab_size:] = float("-inf")
+    logits = mask_padding(logits, cfg.vocab_size)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache

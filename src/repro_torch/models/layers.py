@@ -26,8 +26,29 @@ RMSNorm op (``kernels.rmsnorm``).  MLA's prefill attention (q/k head dim
 :func:`flash_attention_torch`, as the JAX package routes it through
 ``flash_attention_xla`` whatever ``attn_impl`` says (``layers.py:435``).
 Decode attention and the MoE products stay plain PyTorch, as the JAX
-package runs them in XLA.  There is no mesh: sharding constraints are
-identities on one device.
+package runs them in XLA.
+
+Sharding is expressed through logical constraints (``distributed.shard``),
+at the JAX package's places:
+  batch  -> ("pod","data")    activations' leading batch dim
+  heads  -> "model"           when n_heads % tp == 0 (TP attention)
+  seq    -> "model"           otherwise (sequence/context parallelism)
+  ff/kv  -> "model"           MLP hidden, KV-cache heads
+Outside a mesh (and on plain tensors) every constraint is an identity and
+the code above runs as it did.  Under a mesh the tensors are DTensors, and
+each kernel (flash attention, RMSNorm, the SSD scan) runs on every rank's
+shard through ``local_map``: attention per local head group, which is
+exact.  Where the heads do not divide the model axis (llava 56 heads,
+hymba 25) the reference shards the queries' sequence; the kernel has no
+query offset, so the port gathers the queries and every model rank
+computes the whole attention of its batch shard (the output is then cut
+to the rank's sequence shard by the next constraint).  MoE layers run
+expert parallel (two all-to-alls over "model") when the sequence divides
+the model axis, else every rank gathers the tokens, routes them all and
+runs its share of the experts, which stay sharded over "model", on their
+slots; the parts are summed over "model" (decode).  The dry run names
+the cells whose numbers include either gather
+(``launch.dryrun.layout_departures``).
 """
 
 from __future__ import annotations
@@ -38,6 +59,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (axis_size, batch_placements,
+                                    current_mesh_axes, is_dtensor,
+                                    local_run, placements_of, replicated,
+                                    shard)
 from ..kernels import _grad
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ref import flash_attention_ref
@@ -80,7 +105,10 @@ def norm_init(d: int, cfg: ModelConfig, device, bias: bool = False
 
 def apply_norm(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     """RMSNorm or LayerNorm with the JAX package's rounding: statistics
-    summed in f32, the product taken in ``x.dtype``."""
+    summed in f32, the product taken in ``x.dtype``.  On a DTensor the norm
+    runs on the rank's (batch, sequence) shard and its output gathers the
+    sequence (Megatron-SP: the gather precedes the tensor-parallel
+    projections, which then see whole rows)."""
     d = x.shape[-1]
     if cfg.norm == "layer":
         mu = x.sum(dim=-1, keepdim=True, dtype=torch.float32) / d
@@ -92,7 +120,7 @@ def apply_norm(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     y = xc * nf.to(x.dtype) * p["scale"].to(x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
-    return y
+    return shard(y, "batch", None, None) if is_dtensor(y) else y
 
 
 def rms_norm_head(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -100,9 +128,31 @@ def rms_norm_head(x: torch.Tensor, scale: torch.Tensor, eps: float
     """Per-head RMS norm over the last dim (qwen3 qk_norm): the RMSNorm
     kernel's function, f32 statistics and one cast at the end.  A training
     step may hand over a bf16 ``scale`` (``launch.steps.cast_params``); it
-    is widened to f32, as the JAX package's f32 product widens it."""
-    return _grad.apply(rmsnorm_ops.rmsnorm, rmsnorm_ref, x.contiguous(),
-                       scale.float(), eps=eps)
+    is widened to f32, as the JAX package's f32 product widens it.  On a
+    DTensor the kernel runs on every rank's rows (the normed dim whole)."""
+    def norm(xl, sl):
+        return _grad.apply(rmsnorm_ops.rmsnorm_op, rmsnorm_ref,
+                           xl.contiguous(), sl.float(), eps=eps)
+    if is_dtensor(x):
+        pl = kernel_placements(x, keep=(x.dim() - 1,))
+        return local_run(norm, (x, scale), (pl, replicated(x.device_mesh)),
+                         pl, x.device_mesh)
+    return norm(x, scale)
+
+
+def kernel_placements(x, keep=(), replicate_axes=()) -> list:
+    """Placements under which a kernel can run on ``x``'s local shards:
+    its own, with a partial sum reduced, the dims in ``keep`` whole, and
+    the mesh dims named in ``replicate_axes`` replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = x.device_mesh.mesh_dim_names
+    out = []
+    for name, p in zip(names, x.placements):
+        if p.is_partial() or name in replicate_axes or (
+                isinstance(p, Shard) and p.dim % x.dim() in keep):
+            p = Replicate()
+        out.append(p)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +260,32 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, Dv)
 
 
+@torch.library.custom_op("repro_torch::chunked_attention", mutates_args=())
+def chunked_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: int, q_chunk: int,
+                         kv_chunk: int) -> torch.Tensor:
+    """:func:`flash_attention_torch` as one operator, the model's path to
+    it: a sharded model calls it on each rank's heads, and under
+    ``FakeTensorMode`` (the dry run) its fake version gives the shape
+    without walking the chunks."""
+    return flash_attention_torch(q, k, v, causal=causal, window=window,
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+
+@chunked_attention_op.register_fake
+def _(q, k, v, causal, window, q_chunk, kv_chunk):
+    return q.new_empty(q.shape[:3] + v.shape[3:])
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      q_chunk: int = 512, kv_chunk: int = 1024):
+    """:func:`flash_attention_torch` through its operator (the gradient
+    recomputes the plain function)."""
+    return _grad.apply(chunked_attention_op, flash_attention_torch, q, k, v,
+                       causal=causal, window=int(window), q_chunk=q_chunk,
+                       kv_chunk=kv_chunk)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_len: int, *,
                      kv_chunk: int = 2048) -> torch.Tensor:
@@ -217,8 +293,24 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: (B, 1, H, Dq); caches: (B, S, KVH, D*); cur_len: count of valid
     entries (ring caches pass W once full).  Chunked online-softmax over
-    the sequence, as the JAX package's ``decode_attention``.
-    """
+    the sequence, as the JAX package's ``decode_attention``.  On DTensor
+    caches every rank attends over its shard: a head-sharded cache with
+    its heads' queries, a sequence-sharded one with all queries and the
+    partial softmax statistics combined across the shards
+    (flash-decoding)."""
+    if is_dtensor(k_cache):
+        return _sharded_decode_attention(q, k_cache, v_cache, cur_len,
+                                         kv_chunk)
+    B, _, H, _ = q.shape
+    m, l, acc = _decode_partial(q, k_cache, v_cache, cur_len, kv_chunk)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def _decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, cur_len: int, kv_chunk: int):
+    """The online-softmax state (m, l, acc) of ``q`` over the first
+    ``cur_len`` entries of the caches."""
     B, _, H, Dq = q.shape
     _, S, KVH, Dv = v_cache.shape
     G = H // KVH
@@ -241,8 +333,49 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         acc = acc * corr[..., None] + _mm_f32("bhgk,bkhd->bhgd",
                                               p.to(vb.dtype), vb)
         m = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.reshape(B, 1, H, Dv).to(q.dtype)
+    return m, l, acc
+
+
+def seq_shard_offset(t, dim: int = 1) -> Tuple[Optional[str], int]:
+    """(the mesh axis that shards dim ``dim`` of DTensor ``t`` or None,
+    the global index of this rank's first entry along it)."""
+    from torch.distributed.tensor import Shard
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names
+    n, lo, axis = t.shape[dim], 0, None
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n = -(-n // mesh.size(i))
+            lo = lo * mesh.size(i) + mesh.get_local_rank(names[i])
+            axis = names[i]
+    return axis, lo * n
+
+
+def _sharded_decode_attention(q, k_cache, v_cache, cur_len: int,
+                              kv_chunk: int):
+    from torch.distributed.tensor import Replicate, Shard
+    from ..distributed.sharding import all_reduce
+    mesh = k_cache.device_mesh
+    axis, lo = seq_shard_offset(k_cache)
+    c_pl = kernel_placements(k_cache, keep=(3,))
+    q_pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in c_pl]
+    Dv = v_cache.shape[-1]
+
+    def local(ql, kl, vl):
+        m, l, acc = _decode_partial(ql, kl, vl, cur_len - lo, kv_chunk)
+        if axis is not None:
+            group = mesh.get_group(axis)
+            mg = all_reduce(m, "max", group)
+            mg = torch.where(torch.isfinite(mg), mg, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - mg), 0.0)
+            l = all_reduce(l * corr, "sum", group)
+            acc = all_reduce(acc * corr[..., None], "sum", group)
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        return out.reshape(ql.shape[0], 1, ql.shape[2], Dv).to(ql.dtype)
+
+    return local_run(local, (q, k_cache, v_cache), (q_pl, c_pl, c_pl),
+                     q_pl, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -282,9 +415,9 @@ def qkv_project(p: Params, cfg: ModelConfig, x: torch.Tensor,
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_heads(q, cfg.n_heads, hd)
+    k = split_heads(k, cfg.n_kv_heads, hd)
+    v = split_heads(v, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm_head(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm_head(k, p["k_norm"], cfg.norm_eps)
@@ -293,18 +426,67 @@ def qkv_project(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
+def split_heads(t: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """(B, S, heads * hd) -> (B, S, heads, hd).  A DTensor whose feature
+    dim is sharded over more ranks than divide ``heads`` gathers it first
+    (a view cannot split a head across ranks)."""
+    B, S = t.shape[:2]
+    if is_dtensor(t):
+        from torch.distributed.tensor import Shard
+        n = 1
+        for i, p in enumerate(t.placements):
+            if isinstance(p, Shard) and p.dim == 2:
+                n *= t.device_mesh.size(i)
+        if heads % n:
+            t = shard(t, "batch", None, None)
+    return t.reshape(B, S, heads, hd)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H * hd).  On a DTensor the merge runs on the
+    local shards, so that the gradient, which a following row-parallel
+    product hands back sharded on the merged dim, is laid out as ``t``
+    before it is split into heads again."""
+    if is_dtensor(t):
+        pl = kernel_placements(t)
+        return local_run(lambda x: x.flatten(2), (t,), (pl,), pl,
+                         t.device_mesh)
+    return t.reshape(*t.shape[:2], -1)
+
+
 def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
-    """Full-sequence attention on the path ``cfg.attn_impl`` selects."""
+    """Full-sequence attention on the path ``cfg.attn_impl`` selects; on
+    DTensors, on every rank's local heads (:func:`sharded_attention`)."""
+    if is_dtensor(q):
+        return sharded_attention(
+            lambda ql, kl, vl: _attention_local(cfg, ql, kl, vl), q, k, v)
+    return _attention_local(cfg, q, k, v)
+
+
+def sharded_attention(fn, q, k, v):
+    """``fn(q, k, v)`` (B, S, H, hd) on the local shards: batch and heads
+    stay as the constraints left them, the sequence whole (the queries of
+    a sequence-sharded layout are gathered; see the module docstring)."""
+    mesh = q.device_mesh
+    pl = kernel_placements(q, keep=(1, 3))
+    kv_pl = kernel_placements(k, keep=(1, 3))
+    return local_run(fn, (q, k, v), (pl, kv_pl, kv_pl), pl, mesh)
+
+
+def _attention_local(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """:func:`attention` on plain tensors (inside a mesh, a rank's
+    shard)."""
     if cfg.attn_impl == "cuda":
-        return _grad.apply(flash_ops.flash_attention, flash_attention_ref,
+        return _grad.apply(flash_ops.flash_attention_op, flash_attention_ref,
                            q, k, v, causal=cfg.causal,
                            window=int(cfg.sliding_window))
     if cfg.attn_impl == "torch":
-        return flash_attention_torch(q, k, v, causal=cfg.causal,
-                                     window=cfg.sliding_window,
-                                     q_chunk=cfg.attn_q_chunk,
-                                     kv_chunk=cfg.attn_kv_chunk)
+        return chunked_attention(q, k, v, causal=cfg.causal,
+                                 window=cfg.sliding_window,
+                                 q_chunk=cfg.attn_q_chunk,
+                                 kv_chunk=cfg.attn_kv_chunk)
     raise ValueError(f"attn_impl must be 'cuda' or 'torch', got "
                      f"{cfg.attn_impl!r}")
 
@@ -320,8 +502,44 @@ def attn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     q, k, v = qkv_project(p, cfg, x, positions)
     if kv is not None:
         kv["k"], kv["v"] = k, v
-    out = attention(cfg, q, k, v).reshape(B, S, cfg.n_heads * cfg.hd)
-    return out @ p["wo"].to(x.dtype)
+    q, k, v = _shard_qkv(cfg, q, k, v)
+    out = merge_heads(attention(cfg, q, k, v))
+    return shard(out @ p["wo"].to(x.dtype), "batch", None, None)
+
+
+def _tp_heads(cfg: ModelConfig) -> bool:
+    """Shard attention by heads when divisible by the tp extent; otherwise
+    fall back to sequence sharding (llava 56H, hymba 25H)."""
+    tp = axis_size("tp")
+    return tp > 1 and cfg.n_heads % tp == 0
+
+
+def _shard_qkv(cfg: ModelConfig, q, k, v):
+    """Pick an attention sharding that divides cleanly (the JAX package's
+    ``layers.py:289-316``).
+
+    * heads divisible by tp and kv-heads divisible -> classic TP attention;
+    * heads divisible but kv-heads NOT (qwen3 kv=8, chatglm kv=2 on tp=16):
+      broadcast KV to full heads first, so each rank holds whole groups;
+    * heads not divisible (llava 56H, hymba 25H) -> sequence sharding.
+    Outside a mesh every branch is an identity."""
+    if not current_mesh_axes():
+        return q, k, v
+    tp = axis_size("tp")
+    kvh = k.shape[2]
+    if _tp_heads(cfg):
+        q = shard(q, "batch", None, "tp", None)
+        if kvh % tp != 0 and q.shape[2] % kvh == 0:
+            g = q.shape[2] // kvh
+            k = torch.repeat_interleave(k, g, dim=2)
+            v = torch.repeat_interleave(v, g, dim=2)
+        k = shard(k, "batch", None, "tp", None)
+        v = shard(v, "batch", None, "tp", None)
+    else:     # sequence sharding over the model axis
+        q = shard(q, "batch", "seq", None, None)
+        k = shard(k, "batch", None, None, None)
+        v = shard(v, "batch", None, None, None)
+    return q, k, v
 
 
 def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
@@ -334,13 +552,37 @@ def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     q, k, v = qkv_project(p, cfg, x, pos[:, None])
     W = cache["k"].shape[1]
     slot = pos0 % W if cfg.sliding_window else pos0
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    write_slot(cache["k"], k, slot)
+    write_slot(cache["v"], v, slot)
     cur = min(pos0 + 1, W)
     out = decode_attention(q, cache["k"], cache["v"], cur,
                            kv_chunk=cfg.decode_kv_chunk)
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
     return out @ p["wo"].to(x.dtype), cache
+
+
+def write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """``cache[:, slot] = new[:, 0]`` in place.  On a DTensor cache the
+    rank whose sequence shard holds ``slot`` writes it into its local
+    shard (the new entry laid out as the cache, its length-1 sequence dim
+    replicated)."""
+    if not is_dtensor(cache):
+        cache[:, slot] = new[:, 0].to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+          for p in cache.placements]
+    new = new.to(cache.dtype)
+    if not is_dtensor(new):
+        from torch.distributed.tensor import DTensor
+        new = DTensor.from_local(new, mesh, replicated(mesh),
+                                 run_check=False)
+    new = new.redistribute(mesh, pl).to_local()
+    loc = cache.to_local()
+    _, lo = seq_shard_offset(cache)
+    if lo <= slot < lo + loc.shape[1]:
+        loc[:, slot - lo] = new[:, 0]
 
 
 def kv_cache_init(cfg: ModelConfig, batch: int, seq: int, dtype, device
@@ -380,7 +622,7 @@ def _mla_qc(p: Params, cfg: ModelConfig, x: torch.Tensor,
     B, S, _ = x.shape
     H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     r = cfg.kv_lora_rank
-    q = (x @ p["w_q"].to(x.dtype)).reshape(B, S, H, dn + dr)
+    q = split_heads(x @ p["w_q"].to(x.dtype), H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = rope_rotate(q_rope, positions, cfg.rope_theta)
     ckv = x @ p["w_dkv"].to(x.dtype)
@@ -404,15 +646,23 @@ def mla_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     q_nope, q_rope, c, k_rope = _mla_qc(p, cfg, x, positions)
     if lat is not None:
         lat["c"], lat["kr"] = c, k_rope
-    k_nope = (c @ p["w_uk"].to(x.dtype)).reshape(B, S, H, dn)
-    v = (c @ p["w_uv"].to(x.dtype)).reshape(B, S, H, dv)
+    k_nope = split_heads(c @ p["w_uk"].to(x.dtype), H, dn)
+    v = split_heads(c @ p["w_uv"].to(x.dtype), H, dv)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
                   dim=-1)
-    out = flash_attention_torch(q, k, v, causal=cfg.causal,
-                                q_chunk=cfg.attn_q_chunk,
-                                kv_chunk=cfg.attn_kv_chunk)
-    return out.reshape(B, S, H * dv) @ p["wo"].to(x.dtype)
+    q = shard(q, "batch", None, "tp", None)
+    k = shard(k, "batch", None, "tp", None)
+    v = shard(v, "batch", None, "tp", None)
+
+    def attend(qq, kk, vv):
+        return chunked_attention(qq, kk, vv, causal=cfg.causal,
+                                 q_chunk=cfg.attn_q_chunk,
+                                 kv_chunk=cfg.attn_kv_chunk)
+    out = sharded_attention(attend, q, k, v) if is_dtensor(q) \
+        else attend(q, k, v)
+    return shard(merge_heads(out) @ p["wo"].to(x.dtype), "batch", None,
+                 None)
 
 
 def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
@@ -427,8 +677,8 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     q_nope, q_rope, c_new, kr_new = _mla_qc(p, cfg, x, pos[:, None])
     c_cache, kr_cache = cache["c"], cache["kr"]
     S = c_cache.shape[1]
-    c_cache[:, pos0] = c_new[:, 0].to(c_cache.dtype)
-    kr_cache[:, pos0] = kr_new[:, 0].to(kr_cache.dtype)
+    write_slot(c_cache, c_new, pos0)
+    write_slot(kr_cache, kr_new, pos0)
     w_uk = p["w_uk"].to(x.dtype).reshape(r, H, dn)
     # absorb: q_lat[b,h,r] = q_nope[b,h,dn] . w_uk[r,h,dn]
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
@@ -473,12 +723,13 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    up = x @ p["w_up"].to(x.dtype)
+    up = shard(x @ p["w_up"].to(x.dtype), "batch", None, "tp")
     if cfg.mlp_gated:
-        h = F.silu(x @ p["w_gate"].to(x.dtype)) * up
+        gate = shard(x @ p["w_gate"].to(x.dtype), "batch", None, "tp")
+        h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
-    return h @ p["w_down"].to(x.dtype)
+    return shard(h @ p["w_down"].to(x.dtype), "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -562,31 +813,123 @@ def _expert_ffn(recv: torch.Tensor, wg, wu, wd) -> torch.Tensor:
     return torch.bmm(h, wd.to(dt))
 
 
-def _dispatch_combine(p: Params, cfg: ModelConfig, x_flat: torch.Tensor
+def _dispatch_combine(p: Params, cfg: ModelConfig, x_flat: torch.Tensor,
+                      ep: int = 1, group=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Capacity-based dispatch -> expert FFN -> combine, on one device
-    (the JAX package's ``ep=1`` path)."""
+    """Route, then :func:`_expert_combine`: (y, aux)."""
+    w, idx, aux = _route(p, cfg, x_flat)
+    return _expert_combine(p, cfg, x_flat, w, idx, ep, group), aux
+
+
+def _expert_combine(p: Params, cfg: ModelConfig, x_flat: torch.Tensor,
+                    w: torch.Tensor, idx: torch.Tensor, ep: int = 1,
+                    group=None, first: int = 0) -> torch.Tensor:
+    """Capacity-based dispatch -> expert FFN -> combine of routed tokens:
+    on one device (the JAX package's ``ep=1`` path), or, with ``group``
+    (the model axis of ``ep`` ranks, each holding E/ep experts), expert
+    parallel on each rank's tokens: an all-to-all sends every expert's
+    slots to the rank that holds it and another brings the outputs back
+    (the JAX package's two ``lax.all_to_all`` calls,
+    ``layers.py:580,587``).  Without ``group``, ``p``'s experts are
+    experts [first, first + E_loc) of the E: a rank of a mesh without
+    expert parallelism runs its own on every token's slots, and y is its
+    part of the sum over experts."""
     T, d = x_flat.shape
     E, k = cfg.n_routed_experts, cfg.moe_top_k
     C = moe_capacity(cfg, T)
-    w, idx, aux = _route(p, cfg, x_flat)
     slot, keep = dispatch_slots(idx, E, C)
     x_rep = torch.repeat_interleave(x_flat, k, dim=0)           # (T*k, d)
     send = x_flat.new_zeros((E * C + 1, d)).index_put((slot,), x_rep)
-    out = _expert_ffn(send[:-1].reshape(E, C, d), p["w_gate_e"],
-                      p["w_up_e"], p["w_down_e"])
+    send = send[:-1].reshape(E, C, d)
+    El = p["w_gate_e"].shape[0]
+    if group is not None and ep > 1:
+        from torch.distributed._functional_collectives import \
+            all_to_all_single_autograd as a2a
+        recv = a2a(send.contiguous(), None, None, group)  # (ep, El, C, d)
+        recv = recv.reshape(ep, El, C, d).transpose(0, 1) \
+            .reshape(El, ep * C, d)
+    else:
+        recv = send[first:first + El]
+    out = _expert_ffn(recv, p["w_gate_e"], p["w_up_e"], p["w_down_e"])
+    if group is not None and ep > 1:
+        out = out.reshape(El, ep, C, d).transpose(0, 1).contiguous()
+        out = a2a(out, None, None, group).reshape(E, C, d)
+    elif El < E:
+        out = torch.cat([out.new_zeros((first, C, d)), out,
+                         out.new_zeros((E - first - El, C, d))])
     got = torch.cat([out.reshape(E * C, d), x_flat.new_zeros((1, d))])
     y = got[slot] * keep[:, None].to(x_flat.dtype)              # (T*k, d)
-    y = (y.reshape(T, k, d) * w[..., None]).sum(dim=1)
-    return y, aux
+    return (y.reshape(T, k, d) * w[..., None]).sum(dim=1)
 
 
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Routed + shared experts: (y, aux)."""
+    """Routed + shared experts: (y, aux).  Under a mesh with a model axis
+    of ep > 1 ranks that divides S and the experts, expert parallel on
+    each rank's block of (batch shard, sequence shard) tokens, aux
+    averaged over the blocks as the JAX package's ``pmean`` does (a
+    nonlinear function of the per-block routing statistics, so it differs
+    from the global aux); otherwise the local dispatch (same math), under
+    a mesh on all tokens with the experts kept sharded over the model
+    axis."""
     B, S, d = x.shape
-    y, aux = _dispatch_combine(p, cfg, x.reshape(-1, d))
-    y = y.reshape(B, S, d)
+    if is_dtensor(x):
+        y, aux = _moe_sharded(p, cfg, x)
+    else:
+        y, aux = _dispatch_combine(p, cfg, x.reshape(-1, d))
+        y = y.reshape(B, S, d)
     if cfg.n_shared_experts:
         y = y + mlp_apply(p["shared"], cfg, x)
-    return y, aux
+    return shard(y, "batch", None, None), aux
+
+
+def _moe_sharded(p: Params, cfg: ModelConfig, x
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    B, S, d = x.shape
+    ep = axis_size("tp")
+    keys = ("router", "w_gate_e", "w_up_e", "w_down_e")
+    rep = replicated(mesh)
+    if "model" in names and ep > 1 and S % ep == 0 \
+            and cfg.n_routed_experts % ep == 0:
+        # blocks of tokens: the batch as x has it, the sequence over model
+        x_pl = [Shard(1) if n == "model" else p for n, p in
+                zip(names, batch_placements(x, mesh))]
+        e_pl = placements_of(("model", None, None), 3, mesh)
+        blocks = [p if p == Replicate() else Shard(0) for p in x_pl]
+        group = mesh.get_group("model")
+
+        def blk(xb, router, wg, wu, wd):
+            pb = dict(zip(keys, (router, wg, wu, wd)))
+            y, aux = _dispatch_combine(pb, cfg, xb.reshape(-1, d), ep,
+                                       group)
+            return y.reshape(xb.shape), aux.reshape(1)
+
+        y, aux = local_run(blk, (x,) + tuple(p[k] for k in keys),
+                           (x_pl, rep, e_pl, e_pl, e_pl), (x_pl, blocks),
+                           mesh)
+        return y, aux.mean()
+
+    # all tokens routed on every rank; each runs its experts on their
+    # slots, and y is the sum of the ranks' parts over the model axis
+    x = x.redistribute(mesh, rep)
+    w, idx, aux = local_run(
+        lambda xl, router: _route({"router": router}, cfg,
+                                  xl.reshape(-1, d)),
+        (x, p["router"]), (rep, rep), (rep, rep, rep), mesh)
+    e_pl = placements_of(("model", None, None), 3, mesh)
+    first = 0
+    if "model" in names:
+        E = cfg.n_routed_experts
+        first = min(mesh.get_local_rank("model") * -(-E // ep), E)
+
+    def part(xl, wl, il, wg, wu, wd):
+        pb = {"w_gate_e": wg, "w_up_e": wu, "w_down_e": wd}
+        return _expert_combine(pb, cfg, xl.reshape(-1, d), wl, il,
+                               first=first).reshape(xl.shape)
+
+    y_pl = [Partial() if n == "model" else Replicate() for n in names]
+    return local_run(part, (x, w, idx) + tuple(p[k] for k in keys[1:]),
+                     (rep, rep, rep, e_pl, e_pl, e_pl), y_pl, mesh), aux

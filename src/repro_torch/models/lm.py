@@ -31,6 +31,13 @@ package checkpoints its scan body), so a backward pass recomputes each
 block's forward, kernels included.
 
 The encoder-decoder family is ``models/encdec.py``.
+
+Under a mesh (``distributed.mesh_context``, DTensor parameters and
+inputs) the JAX package's constraints apply at its places: the embedded
+input and every layer boundary are (batch x seq)-sharded when the
+sequence divides the model axis (Megatron-SP), and the cross-entropy runs
+vocabulary-parallel on each rank's shard of the head.  Outside a mesh
+they are identities.
 """
 
 from __future__ import annotations
@@ -38,8 +45,13 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import (all_reduce, all_reduce_replicated,
+                                    axis_size, batch_placements, is_dtensor,
+                                    local_run, placements_of, shard)
 from .config import ModelConfig
 from . import layers as L
 from . import ssm as S
@@ -130,6 +142,12 @@ def block_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
     W = min(Sq, cfg.sliding_window) if cfg.sliding_window else Sq
     if cfg.mla or W == Sq:
         cache.update(proj)
+    elif is_dtensor(proj["k"]):   # the same ring layout, as a roll
+        for n in ("k", "v"):
+            t = proj[n][:, Sq - W:]
+            pl = L.kernel_placements(t, keep=(1,))
+            cache[n] = local_run(lambda x: torch.roll(x, (Sq - W) % W, 1),
+                                 (t,), (pl,), pl, t.device_mesh)
     else:  # ring layout consistent with decode's slot = pos % W
         k, v = proj["k"], proj["v"]
         idx = (Sq - W + torch.arange(W, device=k.device)) % W
@@ -226,18 +244,55 @@ def prompt_len(cfg: ModelConfig, batch: Dict) -> int:
     return n + batch["patches"].shape[1] if _has_patches(cfg, batch) else n
 
 
+def embed(table: torch.Tensor, tokens, dtype: torch.dtype) -> torch.Tensor:
+    """Rows of the embedding ``table`` at ``tokens``, in ``dtype``; of a
+    vocabulary-sharded DTensor table, each rank reads its own rows and the
+    rows are summed (:func:`_embed_sharded`)."""
+    ids = _tokens(table.device, tokens)
+    if is_dtensor(table):
+        return _embed_sharded(table, ids, dtype)
+    return table[ids].to(dtype)
+
+
+def _embed_sharded(table, ids, dtype: torch.dtype):
+    """Vocabulary-parallel lookup (Megatron's): every rank reads the ids
+    that fall in its rows of the table, zeros elsewhere, and the rows are
+    summed over the model axis (the gradient of a rank's rows is the
+    upstream gradient at its ids)."""
+    mesh = table.device_mesh
+    model = "model" in mesh.mesh_dim_names
+    ids_pl = batch_placements(ids, mesh)
+    t_pl = placements_of(("model" if model else None, None), 2, mesh)
+    n_loc = table.to_local().shape[0]
+    v_lo = n_loc * (mesh.get_local_rank("model") if model else 0)
+    group = mesh.get_group("model") if model else None
+
+    def local(il, tl):
+        rel = il - v_lo
+        here = (rel >= 0) & (rel < tl.shape[0])
+        rows = tl[torch.clamp(rel, 0, tl.shape[0] - 1)]   # as table[ids]
+        rows = torch.where(here[..., None], rows, 0.0)
+        if group is not None:
+            rows = all_reduce_replicated(rows, "sum", group)
+        return rows.to(dtype)
+
+    return local_run(local, (ids, table), (ids_pl, t_pl), ids_pl, mesh)
+
+
 def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token (+ VLM patch) embeddings and positions."""
     dev = params["embed"].device
-    x = params["embed"][_tokens(dev, batch["tokens"])].to(
-        L.torch_dtype(cfg.dtype))
+    x = embed(params["embed"], batch["tokens"], L.torch_dtype(cfg.dtype))
     if _has_patches(cfg, batch):
-        patches = torch.as_tensor(batch["patches"], device=dev)
+        patches = batch["patches"]
+        if not is_dtensor(patches):
+            patches = torch.as_tensor(patches, device=dev)
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    return x, positions
+    positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+    seq = "seq" if S % max(axis_size("seq"), 1) == 0 else None
+    return shard(x, "batch", seq, None), positions
 
 
 def _text(cfg: ModelConfig, x: torch.Tensor, batch: Dict) -> torch.Tensor:
@@ -258,6 +313,9 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                               use_reentrant=False)
         else:
             x, a = block_apply(lp, cfg, x, positions, kind)
+        # layer-boundary activations are (batch x seq)-sharded so the
+        # saved carries divide over the whole mesh (Megatron-SP)
+        x = shard(x, "batch", "seq", None)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -269,7 +327,17 @@ def logits_f32(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type=f32``.  On the card a bf16 product writes f32
     directly (``torch.mm(..., out_dtype=)``) when no gradient is needed;
     otherwise, and on the CPU, both operands are upcast, which gives the
-    same products (exact in f32)."""
+    same products (exact in f32).  On DTensors each rank takes the
+    logits of its batch rows and its rows of the head (vocab-sharded
+    output)."""
+    if is_dtensor(x):
+        mesh = x.device_mesh
+        model = "model" in mesh.mesh_dim_names
+        pl = batch_placements(x, mesh)
+        out = [p if n != "model" else (Shard(2) if model else p)
+               for n, p in zip(mesh.mesh_dim_names, pl)]
+        h_pl = placements_of(("model" if model else None, None), 2, mesh)
+        return local_run(logits_f32, (x, lm_head), (pl, h_pl), out, mesh)
     head = lm_head.to(x.dtype)
     if x.dtype == torch.float32:
         return x @ head.t()
@@ -325,10 +393,48 @@ def chunked_ce(cfg: ModelConfig, x: torch.Tensor, lm_head: torch.Tensor,
 def _ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
         maskf: torch.Tensor) -> torch.Tensor:
     """sum over positions of (logsumexp - gold logit) * mask, in f32."""
+    if is_dtensor(head):
+        return _ce_sharded(x, head, labels, maskf)
     logits = logits_f32(x, head)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     return torch.sum((lse - gold) * maskf)
+
+
+def _ce_sharded(x, head, labels, maskf) -> torch.Tensor:
+    """:func:`_ce` vocabulary-parallel: every rank takes the logits of its
+    rows of the head (the JAX package's vocab-sharded logits) for its
+    batch shard; the softmax max and sum and the gold logit are reduced
+    over the model axis; each batch shard's sum is one entry of a vector
+    laid out as the batch over the data axes, summed last."""
+    mesh = head.device_mesh
+    model = "model" in mesh.mesh_dim_names
+    row = batch_placements(labels, mesh)
+    h_pl = placements_of(("model" if model else None, None), 2, mesh)
+    group = mesh.get_group("model") if model else None
+    v_lo = head.to_local().shape[0] * (mesh.get_local_rank("model")
+                                       if model else 0)
+
+    def local(xl, hl, ll, ml):
+        if group is None or group.size() == 1:   # the vocabulary is whole
+            return _ce(xl, hl, ll, ml).reshape(1)
+        logits = logits_f32(xl, hl)                        # (b, C, V / tp)
+        mx = all_reduce(logits.detach().amax(dim=-1), "max", group)
+        se = torch.exp(logits - mx[..., None]).sum(dim=-1)
+        rel = ll - v_lo
+        here = (rel >= 0) & (rel < hl.shape[0])
+        gold = torch.gather(logits, -1, torch.clamp(
+            rel, 0, hl.shape[0] - 1)[..., None])[..., 0]
+        gold = torch.where(here, gold, 0.0)
+        se = all_reduce_replicated(se, "sum", group)
+        gold = all_reduce_replicated(gold, "sum", group)
+        lse = torch.log(se) + mx
+        return torch.sum((lse - gold) * ml).reshape(1)
+
+    nll = local_run(local, (x, head, labels, maskf),
+                    (row, h_pl, row, row), row, mesh,
+                    reduces=("model",) if model else ())
+    return nll.sum()
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict
@@ -364,6 +470,18 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict
                           "first": caches[:n_first], "pos": pos}
 
 
+def mask_padding(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """-inf at the vocabulary padding (entries ``vocab:``), in place; a
+    DTensor gets a masked copy with the vocabulary gathered (the greedy
+    pick that follows runs on whole rows)."""
+    if is_dtensor(logits):
+        ids = torch.arange(logits.shape[-1], device=logits.device)
+        return shard(torch.where(ids < vocab, logits, float("-inf")),
+                     "batch", None, None)
+    logits[..., vocab:] = float("-inf")
+    return logits
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device) -> Dict:
     """Zero decode caches for a max context of ``seq`` tokens."""
     dt = L.torch_dtype(cfg.dtype)
@@ -383,15 +501,18 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device) -> Dict:
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def decode_step(cfg: ModelConfig, params: Params, cache: Dict, tokens
-                ) -> Tuple[torch.Tensor, Dict]:
+def decode_step(cfg: ModelConfig, params: Params, cache: Dict, tokens,
+                pos0: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
     """One greedy decode step. tokens: (B, 1) -> (next (B, 1) int32, cache).
     The KV and latent caches are updated in place, the SSM caches are
-    replaced; the caches are returned with ``pos`` advanced."""
+    replaced; the caches are returned with ``pos`` advanced.  ``pos0``,
+    when given, is ``int(cache["pos"][0])`` known on the host (the dry
+    run's fake tensors hold no value to read)."""
     pos = cache["pos"]
-    pos0 = int(pos[0])
-    x = params["embed"][_tokens(params["embed"].device, tokens)].to(
-        L.torch_dtype(cfg.dtype))
+    if pos0 is None:
+        pos0 = int(pos[0])
+    x = shard(embed(params["embed"], tokens, L.torch_dtype(cfg.dtype)),
+              "batch", None, None)
     new_caches = []
     for (lp, kind), lc in zip(_blocks(cfg, params),
                               cache["first"] + cache["layers"]):
@@ -400,7 +521,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict, tokens
     x = L.apply_norm(x, params["final_norm"], cfg)
     logits = logits_f32(x, params["lm_head"])
     # mask vocab padding, then greedy
-    logits[..., cfg.vocab_size:] = float("-inf")
+    logits = mask_padding(logits, cfg.vocab_size)
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     n_first = layer_kinds(cfg)[1]
     return next_tok, {"layers": new_caches[n_first:],

@@ -27,18 +27,20 @@ runs it in XLA.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate
 
+from ..distributed.sharding import (batch_placements, is_dtensor,
+                                    local_run, placements_of, shard)
 from ..kernels import _grad
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import ssd_scan_chunked_ref
 from .config import ModelConfig
-from .layers import dense_init, rms_norm_head, torch_dtype
+from .layers import dense_init, merge_heads, rms_norm_head, torch_dtype
 
 Params = Dict[str, Any]
 
@@ -72,7 +74,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
     """Depthwise causal conv1d.  x: (B, S, C); w: (W, C).  Shifted slices
     added in ``x.dtype`` one after another, as the JAX package sums them
-    (``ssm.py:57-66``), so bf16 rounds at the same places."""
+    (``ssm.py:57-66``), so bf16 rounds at the same places.  On a DTensor
+    it runs on every rank's batch shard (sequence and channels whole)."""
+    if is_dtensor(x):
+        mesh = x.device_mesh
+        pl = batch_placements(x, mesh)
+        rep = [Replicate() for _ in pl]
+        return local_run(_causal_conv, (x, w, b), (pl, rep, rep), pl, mesh)
     W = w.shape[0]
     S = x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
@@ -93,11 +101,17 @@ def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
 def ssd_chunk_scan(cfg: ModelConfig, x, b, c, dt, da
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunk scan on the path ``cfg.ssm_impl`` selects: (y, final
-    state)."""
+    state); on DTensors, on every rank's batch shard."""
+    if is_dtensor(x):
+        mesh = x.device_mesh
+        dp = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+        pls = [placements_of((dp or None,), t.dim(), mesh)
+               for t in (x, b, c, dt, da)]
+        return local_run(lambda *a: ssd_chunk_scan(cfg, *a),
+                         (x, b, c, dt, da), pls, (pls[0], pls[0]), mesh)
     if cfg.ssm_impl == "cuda":
-        return _grad.apply(functools.partial(ssd_ops.ssd_scan,
-                                             return_state=True),
-                           ssd_scan_chunked_ref, x, b, c, dt, da)
+        return _grad.apply(ssd_ops.ssd_scan_op, ssd_scan_chunked_ref,
+                           x, b, c, dt, da)
     if cfg.ssm_impl == "torch":
         return ssd_scan_chunked_ref(x, b, c, dt, da)
     raise ValueError(f"ssm_impl must be 'cuda' or 'torch', got "
@@ -126,6 +140,7 @@ def ssd_apply(p: Params, cfg: ModelConfig, x_in: torch.Tensor,
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, S, nh)
     A = -torch.exp(p["A_log"])                      # (nh,)
     dA = dt * A                                     # (B, S, nh)
+    xs = shard(xs, "batch", None, None, None)
 
     # chunked views (x, b and c stay column slices: the kernel takes strides)
     y, h_fin = ssd_chunk_scan(cfg, xs.reshape(Bsz, nc, Q, nh, hd),
@@ -138,7 +153,8 @@ def ssd_apply(p: Params, cfg: ModelConfig, x_in: torch.Tensor,
     # gated head norm, then out-projection
     zs = z.reshape(Bsz, S, nh, hd)
     y = rms_norm_head(y * F.silu(zs), p["gate_norm"], cfg.norm_eps)
-    out = y.reshape(Bsz, S, di) @ p["out_proj"].to(x_in.dtype)
+    out = shard(merge_heads(y) @ p["out_proj"].to(x_in.dtype),
+                "batch", None, None)
     if with_cache:
         # raw (pre-conv) xbc tail feeds the decode-side conv window; a
         # prompt shorter than conv_width - 1 gives a shorter tail (the

@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``repro_torch`` and nothing in
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
 importing the port's Recorder, its baselines and workloads, its read
-side, its trace service, its models, serving engine, training side and
-configs leaves ``jax`` unloaded.  The port's examples are held to the
-same rule."""
+side, its trace service, its models, serving engine, training side,
+configs, sharding layer and dry run leaves ``jax`` unloaded.  The port's
+examples are held to the same rule."""
 
 import ast
 import os
@@ -71,7 +71,9 @@ def test_recorder_import_leaves_jax_unloaded():
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
             "repro_torch.train, repro_torch.launch.steps, "
             "repro_torch.launch.train, repro_torch.core.baselines, "
-            "repro_torch.workloads; "
+            "repro_torch.workloads, repro_torch.launch.mesh, "
+            "repro_torch.launch.shapes, repro_torch.launch.step_analysis, "
+            "repro_torch.launch.dryrun, repro_torch.optim.compress; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(_REPO, "src"))
