@@ -68,8 +68,40 @@ csrc`` and then runs, in order:
                 job only; it prints each job's wall time, every rank's
                 record time, the finalize timed apart (rank 0's and the
                 slowest rank's) and rank 0's device busy time;
+7a. durability -- the write path's faults and recovery on ``cuda``:
+                phase 3's IOR cut to 2,048 iterations a rank (4,099
+                records) on 32 ThreadComm ranks, a flush every 1,024
+                records (4 epochs and finalize's tail), in five jobs:
+                synchronous flushes; async flushes, each drained, whose
+                commit runs on the recorder's pool thread (the bytes must
+                be job 1's); rank 1 mute in epoch 2 (a seeded
+                ``FaultPlan``, the degraded protocol): ``ranks_present``
+                must leave rank 1 out of epoch 2 only, its records ride
+                epoch 3, and the bytes must be the same job's on
+                ``numpy``; rank 0's commit of epoch 2 crashes at
+                ``pre-manifest``, then a restarted job records from epoch
+                2 into the same directory (the bytes, ``merged/``
+                included, must be job 1's); a torn ``timestamps.bin`` in
+                epoch 2 must be caught by the checksum and reported by
+                ``check_trace_invariants``.  Every flush on ``cuda`` must
+                launch ``delta_zigzag`` once on the thread that ran it
+                (the rank's, or its pool thread's), counted where the
+                kernel launches (``_build.thread_launch_counts``).  Then the crash case
+                on 4 processes over ``TorchDistComm`` (rank 0's commit of
+                epoch 2 crashing: a ``WorldError`` naming rank 0; a
+                second world resumes),
+                whose directory must be the same calls' uninterrupted
+                ThreadComm run's.  It prints each job's wall time, flush
+                and drain times and device busy time;
+7b. finalize_scaling -- ``workloads.synth_rank_states(2048, n_groups=32,
+                n_calls=64, pattern="mixed_all")`` (synthesized on
+                ``numpy``), finalized flat on ``cuda`` (one
+                ``fit_columns`` launch), tree on ``cuda`` and flat on
+                ``numpy``: the written ``*.bin`` bytes must be equal; it
+                prints each finalize's seconds, launches and device busy
+                time;
 8. serve     -- the model workload the tracer watches: qwen3-32b at every
-                published width, 16 of its 64 layers, bf16, random weights
+                published width, 8 of its 64 layers, bf16, random weights
                 from a seeded generator, served by ``ServeEngine`` (4
                 prompts of 1,024 tokens, 32 new tokens each) on the kernel
                 path inside a ``session``; the trace must read back 31
@@ -85,12 +117,12 @@ csrc`` and then runs, in order:
                 layers), with 4 prompts of 2,048 tokens each; their plain
                 run flips both ``attn_impl`` and ``ssm_impl`` to
                 ``"torch"``; then a mamba2 prefill of 4 prompts of 2,053
-                tokens (a prime: Q 1), kernel path against plain path, with
-                its peak memory;
-9b. serve_moe_mla_vlm -- the same for deepseek-moe-16b (full depth, 28
+                tokens (a prime: Q 1) at 16 of its 48 layers, kernel path
+                against plain path, with its peak memory;
+9b. serve_moe_mla_vlm -- the same for deepseek-moe-16b (14 of its 28
                 layers: one dense, then 64 routed experts top-6 and 2
-                shared), deepseek-v2-lite-16b (full depth, 27 layers: MLA
-                and MoE) and llava-next-34b (16 of 60 layers, 2,880 seeded
+                shared), deepseek-v2-lite-16b (14 of its 27 layers: MLA
+                and MoE) and llava-next-34b (8 of 60 layers, 2,880 seeded
                 patch embeddings before the 1,024 tokens of each prompt,
                 GQA group 7); MoE's plain run is held with the kernel
                 path's routing replayed and prints the routing flips of
@@ -162,7 +194,7 @@ csrc`` and then runs, in order:
 11a. sharded -- the sharding layer's real path on the card: a one-rank
                 NCCL group and a (1, 1) ("data", "model") mesh;
                 ``launch.steps.build_cell`` with full parameters drives
-                qwen3-32b x 16 (bf16, a prefill of 4 x 1,024 tokens and
+                qwen3-32b x 8 (bf16, a prefill of 4 x 1,024 tokens and
                 32 greedy decode steps), mamba2-370m x 48 (the same with
                 4 x 2,048) and qwen1.5-0.5b x 24 (2 train steps, ZeRO-1
                 over the one-rank data axis) as DTensors, each held
@@ -175,7 +207,10 @@ csrc`` and then runs, in order:
 11b. dryrun  -- ``launch.dryrun`` on a fake 256-rank group under
                 ``FakeTensorMode`` on ``cuda``: every applicable cell on
                 the single-pod mesh and qwen3-32b and deepseek-moe-16b on
-                the multi-pod one, in worker processes; each prints its
+                the multi-pod one, in worker processes that start after
+                the build and run beside phases 2-3 (fake tensors launch
+                nothing on the card; the phase reads their results and
+                checks them); each prints its
                 status, seconds, per-chip argument and peak-estimate
                 bytes, FLOPs a chip against ``model_flops_per_chip``,
                 collective bytes by kind, H100 roofline terms and
@@ -184,7 +219,14 @@ csrc`` and then runs, in order:
                 ``long_500k`` is a SKIP for the eight full-attention
                 architectures; four cells run again on ``cpu`` fake
                 tensors must give the same FLOPs and collective bytes,
-                and but in decode the same peak;
+                and but in decode the same peak; then the roofline
+                report (``launch.roofline.analyze_cell``) of four cells,
+                qwen3-32b ``train_4k``, mamba2-370m ``prefill_32k``,
+                deepseek-moe-16b ``decode_32k`` and hymba-1.5b
+                ``long_500k``, in the dry run's worker processes: their
+                extrapolated FLOPs and collective bytes must be the dry
+                run's (the clamp of a negative per-layer delta must not
+                bind), and ``report()`` prints their table;
 11c. examples -- ``examples/torch_quickstart.py`` (4 steps) and
                 ``examples/torch_workflow_analysis.py`` on the card with the
                 ``cuda`` encode backend, their traces read back;
@@ -226,6 +268,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from types import SimpleNamespace
 
 import numpy as np
@@ -261,12 +304,13 @@ ServeSpec = collections.namedtuple(
     "ServeSpec", "arch layers of prompt max_seq plain rtol f32_rtol "
     "f32_layers frames", defaults=(None, 0))
 SERVE_SPECS = (
-    # 16 of 64 layers (one stage of four), to leave room for the plain
-    # run.  The paths differ by the bf16 rounding of p in every attention,
-    # which the bf16 layers carry to the logits: the 3-layer bf16 smoke
-    # model shows 1.2e-2 on the CPU, sqrt(16 / 3) times that is 2.8e-2
-    ServeSpec("qwen3-32b", 16, 64, 1024, 2048, {"attn_impl": "torch"}, 5e-2,
-              None),
+    # 8 of 64 layers (half a stage of four; 16 until the run's time
+    # limit needed the room).  The paths differ by the bf16 rounding of p
+    # in every attention, which the bf16 layers carry to the logits: the
+    # 3-layer bf16 smoke model shows 1.2e-2 on the CPU.  The bound is
+    # 5e-2 / 16 a layer (held at 16 layers before), times 8
+    ServeSpec("qwen3-32b", 8, 64, 1024, 2048, {"attn_impl": "torch"},
+              5e-2 / 16 * 8, None),
     # full depth, every model kernel but RMSNorm on its plain path.  The
     # SSD paths take the same f32 sums in other orders: in f32 at full
     # depth their logits agree within 3e-5 (relative L2), held here to
@@ -279,22 +323,24 @@ SERVE_SPECS = (
               {"attn_impl": "torch", "ssm_impl": "torch"}, 2e-3 * 48, 1e-3),
     ServeSpec("hymba-1.5b", 32, 32, 2048, 4096,
               {"attn_impl": "torch", "ssm_impl": "torch"}, 3e-3 * 32, 1e-3),
-    # full depth (one dense layer, 27 MoE).  With the routing replayed the
-    # paths differ by flash's bf16 rounding of p alone, as qwen3's do:
-    # qwen3's bound a layer (5e-2 / 16, three times its reading of 1.0e-3
-    # a layer) times 28 layers.  In f32 at 4 layers the paths agree to f32
+    # 14 of 28 layers (one dense layer, 13 MoE; full depth until the run's
+    # time limit needed the room).  With the routing replayed the paths
+    # differ by flash's bf16 rounding of p alone, as qwen3's do: qwen3's
+    # bound a layer (5e-2 / 16, three times its reading of 1.0e-3 a layer)
+    # times 14 layers.  In f32 at 4 layers the paths agree to f32
     # rounding, held to the SSM runs' f32 bound
-    ServeSpec("deepseek-moe-16b", 28, 28, 1024, 2048, {"attn_impl": "torch"},
-              5e-2 / 16 * 28, 1e-3, 4),
-    # full depth; MLA's attention is the plain chunked path whatever
-    # attn_impl says (the reference's routing), so there is no plain run:
-    # its one kernel, RMSNorm on the latent, is held in the kernels phase
-    ServeSpec("deepseek-v2-lite-16b", 27, 27, 1024, 2048, None, None, None),
-    # 16 of 60 layers, to leave room for the plain run (about 20 GB of
-    # weights); 2,880 patches + 1,024 tokens a prompt.  qwen3's bound a
-    # layer times 16 layers; f32 at 4 layers as above
-    ServeSpec("llava-next-34b", 16, 60, 1024, 4096, {"attn_impl": "torch"},
-              5e-2, 1e-3, 4),
+    ServeSpec("deepseek-moe-16b", 14, 28, 1024, 2048, {"attn_impl": "torch"},
+              5e-2 / 16 * 14, 1e-3, 4),
+    # 14 of 27 layers (full depth until the run's time limit needed the
+    # room); MLA's attention is the plain chunked path whatever attn_impl
+    # says (the reference's routing), so there is no plain run: its one
+    # kernel, RMSNorm on the latent, is held in the kernels phase
+    ServeSpec("deepseek-v2-lite-16b", 14, 27, 1024, 2048, None, None, None),
+    # 8 of 60 layers (16 until the run's time limit needed the room);
+    # 2,880 patches + 1,024 tokens a prompt.  qwen3's bound a layer times
+    # 8 layers; f32 at 4 layers as above
+    ServeSpec("llava-next-34b", 8, 60, 1024, 4096, {"attn_impl": "torch"},
+              5e-2 / 16 * 8, 1e-3, 4),
     # full depth (24 encoder + 24 decoder layers), 1,024 frames and 128
     # target tokens a prompt, max_seq 2,048, so the cross-attention mask
     # cuts the cache at the encoder's length.  The paths differ by flash's
@@ -1017,34 +1063,39 @@ def digest(files: dict) -> str:
     return h.hexdigest()
 
 
-def ior_ticks(rank: int) -> np.ndarray:
-    n = 2 * N_ITER + 3
+def ior_ticks(rank: int, n_iter: int = N_ITER) -> np.ndarray:
+    n = 2 * n_iter + 3
     rng = np.random.RandomState(1000 + rank)
     return np.cumsum(rng.randint(1, 40, size=2 * n)).reshape(n, 2)
 
 
-def ior_record(rec, comm, registry, rank: int, flush_every: int = 0
-               ) -> None:
+def ior_record(rec, comm, registry, rank: int, flush_every: int = 0,
+               n_iter: int = N_ITER, start: int = 0, flush=None) -> None:
     """Rank ``rank``'s IOR calls into ``rec`` with explicit ticks; with
-    ``flush_every``, a (collective) ``rec.flush(comm)`` every that many
-    records."""
+    ``flush_every``, a (collective) flush every that many records:
+    ``rec.flush(comm)``, or ``flush(k)`` for the k-th flush where given.
+    ``start`` skips the first ``start`` records (a restarted job records
+    the rest, at the same ticks, and flushes at the same records)."""
     fid = {n: registry.id_of(n)
            for n in ("open", "lseek", "write", "fsync", "close")}
-    t = iter(ior_ticks(rank).tolist())
+    t = iter(ior_ticks(rank, n_iter).tolist())
     done = 0
+    flush = flush or (lambda k: rec.flush(comm))
 
     def record(f, args, ret):
         nonlocal done
-        rec.record(f, args, ret, 0, *next(t))
+        ticks = next(t)
+        if done >= start:
+            rec.record(f, args, ret, 0, *ticks)
         done += 1
-        if flush_every and done % flush_every == 0:
-            rec.flush(comm)
+        if flush_every and done % flush_every == 0 and done > start:
+            flush(done // flush_every - 1)
 
     fd = 3
     record(fid["open"], ("/scratch/ior/testFile", os.O_RDWR | os.O_CREAT,
                          0o644), fd)
-    for i in range(N_ITER):
-        off = rank * XFER + i * N_RANKS * XFER
+    for i in range(n_iter):
+        off = rank * XFER + i * comm.size * XFER
         record(fid["lseek"], (fd, off, 0), off)
         record(fid["write"], (fd, XFER), XFER)
     record(fid["fsync"], (fd,), 0)
@@ -1273,6 +1324,409 @@ def phase_multiproc(p, ior_runs: dict, ior_counts: dict) -> dict:
     log(f"multiproc: {N_RANKS} processes on {os.cpu_count()} CPUs, world "
         f"{world_s:.2f} s (start-up, three jobs, shut-down)")
     return summary
+
+
+# phase durability: the write path's faults and recovery on the card
+# phase 3's IOR cut to 2,048 iterations a rank: at 8,192 the phase took
+# 167.1 s on the card, more than the run's time limit leaves it
+DUR_ITER = 2048
+DUR_FLUSH = 1024         # records a flush: 4 flushes and finalize's tail
+DUR_EPOCH = 2            # the epoch the faults hit
+DUR_TIMEOUT_S = 3.0      # a hop's receive timeout, degraded protocol
+DUR_PROCS, DUR_PROC_ITER, DUR_PROC_FLUSH = 4, 2048, 1024
+
+
+def durable_job(comm, rank, registry, rec_mod, faults, trace_dir: str,
+                backend: str, *, n_iter: int, flush_every: int,
+                plans=None, start: int = 0, **config) -> dict:
+    """One rank of a durability job: rank ``rank``'s IOR calls (from record
+    ``start``), a flush every ``flush_every`` records (each drained at
+    once with ``async_flush`` in ``config``, the rest of the recorder's
+    config: the commit runs on the recorder's pool thread), then a
+    finalize.  ``plans`` maps a flush's index to the ``FaultPlan`` in
+    force during it, which rank 0 installs between barriers: the one plan
+    of every ThreadComm rank, in a process world rank 0's alone.  Returns
+    each flush's seconds (and drain seconds), its ``ranks_present``, the
+    epoch counters and, on rank 0, the counters of each plan."""
+    rec = rec_mod.Recorder(rank=rank, config=rec_mod.RecorderConfig(
+        trace_dir=trace_dir, encode_backend=backend, **config))
+    out = {"flush_s": [], "drain_s": [], "present": [], "plans": []}
+    plans = plans or {}
+
+    def swap(plan) -> None:
+        comm.barrier()
+        if rank == 0 and plan is None:
+            faults.uninstall()
+        elif rank == 0:
+            faults.install(plan)
+        comm.barrier()
+
+    def flush(k: int) -> None:
+        plan = plans.get(k)
+        if plan is not None:
+            swap(plan)
+        comm.barrier()      # a flush's timeouts (and its clock) start at once
+        t = time.monotonic()
+        rec.flush(comm)
+        out["flush_s"].append(time.monotonic() - t)
+        if config.get("async_flush"):
+            t = time.monotonic()
+            rec.drain()
+            out["drain_s"].append(time.monotonic() - t)
+        o = rec.last_flush_outcome
+        out["present"].append(None if o is None else list(o.ranks_present))
+        if plan is not None:
+            if rank == 0:
+                out["plans"].append(dict(plan.counters))
+            swap(None)
+
+    ior_record(rec, comm, registry, rank, flush_every, n_iter, start, flush)
+    stats = rec.finalize(comm)
+    out.update(n_records=None if stats is None else stats.n_records,
+               **{k: getattr(rec, k) for k in (
+                   "epochs_resumed", "epochs_restored", "epochs_degraded",
+                   "epochs_coalesced")})
+    return out
+
+
+def durable_proc_rank(comm, rank: int, trace_dir: str, part: str,
+                      backend: str) -> dict:
+    """One process of the durability phase's process case: ``part``
+    "crash" kills rank 0's commit of epoch 2 at ``pre-manifest`` (the
+    world ends in ``WorldError``), "resume" records from epoch 2 again
+    into the same directory and finalizes.  Each process counts its own
+    launches."""
+    import repro_torch.core.apis  # noqa: F401  (populate the registry)
+    from repro_torch.core import encode_backend as eb
+    from repro_torch.core import faults, recorder
+    from repro_torch.core.specs import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.delta_encode import ops as de
+
+    if backend == "cuda":       # the CUDA context and the kernels first
+        de.delta_zigzag(torch.zeros(4, dtype=torch.int32, device="cuda"))
+        de.uvarint_pack64(torch.zeros(4, dtype=torch.int64, device="cuda"))
+        torch.cuda.synchronize()
+    eb.set_default_backend(backend)
+    _build.reset_launches()
+    crash = {DUR_EPOCH: faults.FaultPlan(crash_point="pre-manifest")}
+    out = durable_job(comm, rank, REGISTRY, recorder, faults, trace_dir,
+                      backend, n_iter=DUR_PROC_ITER,
+                      flush_every=DUR_PROC_FLUSH,
+                      plans=crash if part == "crash" else None,
+                      start=DUR_EPOCH * DUR_PROC_FLUSH
+                      if part == "resume" else 0)
+    if backend == "cuda":
+        torch.cuda.synchronize()
+    out["launches"] = _build.launch_counts()
+    return out
+
+
+def durable_thread_job(p, name: str, trace_dir: str, backend: str,
+                       flushes: list, **kw) -> dict:
+    """A durability job on ``N_RANKS`` ThreadComm ranks in this process,
+    profiled; what it launched, its flushes (by the flush shim: records,
+    records a block, blocks, ``delta_zigzag`` launches of that flush on
+    its thread) and its per-rank results."""
+    from torch.profiler import ProfilerActivity, profile
+    p.eb.set_default_backend(backend)
+    before, first = p.build.launch_counts(), len(flushes)
+    err = None
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.monotonic()
+            try:
+                res = p.run_thread_world(N_RANKS, lambda comm, rank:
+                                         durable_job(
+                                             comm, rank, p.REGISTRY,
+                                             p.recorder, p.faults,
+                                             trace_dir, backend,
+                                             n_iter=DUR_ITER,
+                                             flush_every=DUR_FLUSH, **kw))
+            except BaseException as e:  # noqa: BLE001  (a crash job)
+                res, err = None, e
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t
+    finally:
+        p.eb.set_default_backend(BACKEND)
+        p.faults.uninstall()
+    job = {"wall_s": wall, "device_busy_ms": device_busy_ms(prof),
+           "launches": counts_since(p.build, before),
+           "flushes": flushes[first:], "res": res, "error": err}
+    if res is not None:
+        job["flush_s_rank0"] = res[0]["flush_s"]
+        job["flush_s_max"] = [max(r["flush_s"][i] for r in res)
+                              for i in range(len(res[0]["flush_s"]))]
+        if res[0]["drain_s"]:
+            job["drain_s_rank0"] = res[0]["drain_s"]
+    log(f"durability {name} ({backend}): {N_RANKS} ThreadComm ranks x "
+        f"{2 * DUR_ITER + 3} records, a flush every {DUR_FLUSH}; wall "
+        f"{wall:.2f} s; flush s (rank 0) "
+        f"{[round(x, 4) for x in job.get('flush_s_rank0', [])]}, slowest "
+        f"rank {[round(x, 4) for x in job.get('flush_s_max', [])]}"
+        + (f", drain s (rank 0) {[round(x, 4) for x in job['drain_s_rank0']]}"
+           if "drain_s_rank0" in job else "")
+        + f"; device busy {job['device_busy_ms']:.3f} ms; launches "
+        f"{job['launches']}" + (f"; raised {type(err).__name__}" if err
+                                else ""))
+    return job
+
+
+def phase_durability(p, flushes: list) -> dict:
+    """Phase durability (see the module docstring)."""
+    root = os.path.join(WORK, "durability")
+    shutil.rmtree(root, ignore_errors=True)
+    d = {n: os.path.join(root, n) for n in (
+        "sync", "async", "mute", "mute-numpy", "crash", "torn")}
+    jobs = {}
+    jobs["sync"] = durable_thread_job(p, "sync", d["sync"], BACKEND,
+                                      flushes)
+    jobs["async"] = durable_thread_job(p, "async", d["async"], BACKEND,
+                                       flushes, async_flush=True)
+    for name, backend in (("mute", BACKEND), ("mute-numpy", "numpy")):
+        jobs[name] = durable_thread_job(
+            p, "mute", d[name], backend, flushes, flush_timeout_s=
+            DUR_TIMEOUT_S, plans={DUR_EPOCH: p.faults.FaultPlan(
+                seed=7, dead_ranks=(1,))})
+    jobs["crash"] = durable_thread_job(
+        p, "crash", d["crash"], BACKEND, flushes,
+        plans={DUR_EPOCH: p.faults.FaultPlan(crash_point="pre-manifest")})
+    crashed = p.trace_format.read_manifest(d["crash"])
+    orphan = os.path.isdir(os.path.join(
+        d["crash"], p.trace_format.segment_name(DUR_EPOCH)))
+    jobs["resume"] = durable_thread_job(p, "resume", d["crash"], BACKEND,
+                                        flushes,
+                                        start=DUR_EPOCH * DUR_FLUSH)
+    jobs["torn"] = durable_thread_job(
+        p, "torn", d["torn"], BACKEND, flushes,
+        plans={DUR_EPOCH: p.faults.FaultPlan(torn_file="timestamps.bin")})
+    bins = {n: bin_files(path) for n, path in d.items()}
+    n_rec = 2 * DUR_ITER + 3
+    n_flush = n_rec // DUR_FLUSH
+    # every job but the crash finalizes: stats on rank 0, every record
+    for name, job in jobs.items():
+        if name == "crash":
+            continue
+        require(job["error"] is None, f"durability {name}: raised "
+                f"{job['error']!r}")
+        require(job["res"][0]["n_records"] == n_rec - (
+            DUR_EPOCH * DUR_FLUSH if name == "resume" else 0),
+            f"durability {name}: rank 0 finalized "
+            f"{job['res'][0]['n_records']} records")
+        if name.endswith("numpy"):
+            continue
+        # each flush on cuda launches delta_zigzag once, on the thread
+        # that ran it (the flushing rank, or its pool thread when async)
+        dz = [n for *_, n in job["flushes"]]
+        require(bool(dz) and all(n == 1 for n in dz),
+                f"durability {name}: delta_zigzag launches a flush {dz}")
+        require(job["launches"].get("delta_zigzag", 0) == len(dz),
+                f"durability {name}: {len(dz)} flushes on cuda launched "
+                f"delta_zigzag {job['launches'].get('delta_zigzag', 0)} "
+                f"times")
+    # 1, 2: async flushes write the sync flushes' bytes
+    require(bins["sync"] == bins["async"], "durability: async flushes "
+            f"wrote other bytes ({digest(bins['async'])[:16]} vs "
+            f"{digest(bins['sync'])[:16]})")
+    require(len(jobs["sync"]["flushes"]) == N_RANKS * (n_flush + 1),
+            f"durability sync: {len(jobs['sync']['flushes'])} rank flushes")
+    segs = sorted(x for x in os.listdir(d["sync"])
+                  if x.startswith(p.trace_format.SEGMENT_PREFIX))
+    require(len(segs) == n_flush + 1 and os.path.isdir(
+        os.path.join(d["sync"], "merged")), f"durability sync: {segs}")
+    # 3: rank 1 mute in epoch 2; the survivors commit it with a mask, and
+    # rank 1's records ride epoch 3; the bytes are numpy's
+    mask = [r for r in range(N_RANKS) if r != 1]
+    m = p.trace_format.read_manifest(d["mute"])
+    got_masks = [e.get("ranks_present") for e in m["segments"]]
+    require(got_masks == [None] * DUR_EPOCH + [mask]
+            + [None] * (len(got_masks) - DUR_EPOCH - 1),
+            f"durability mute: ranks_present by epoch {got_masks}")
+    require(jobs["mute"]["res"][0]["present"][DUR_EPOCH] == mask,
+            "durability mute: rank 0's outcome "
+            f"{jobs['mute']['res'][0]['present'][DUR_EPOCH]}")
+    restored = [r["epochs_restored"] for r in jobs["mute"]["res"]]
+    require(restored == [1 if r == 1 else 0 for r in range(N_RANKS)],
+            f"durability mute: epochs restored by rank {restored}")
+    require(bins["mute"] == bins["mute-numpy"], "durability mute: cuda "
+            "and numpy bytes differ")
+    with warnings.catch_warnings():     # the reader warns of the mask
+        warnings.simplefilter("ignore")
+        view = p.TraceReader(d["mute"], mode="stitched")
+        require(view.ranks_partial == [1] and view.degraded_epochs == {
+            p.trace_format.segment_name(DUR_EPOCH): mask},
+            f"durability mute: reader {view.ranks_partial} "
+            f"{view.degraded_epochs}")
+    # 4: the crash leaves epochs 0-1 and an orphan; the resumed job's
+    # directory is the uninterrupted one's, merged/ included
+    require(type(jobs["crash"]["error"]).__name__ == "SimulatedCrash",
+            f"durability crash: raised {jobs['crash']['error']!r}")
+    require([e["epoch"] for e in crashed["segments"]] == list(
+        range(DUR_EPOCH)) and "merged" not in crashed and orphan,
+        f"durability crash: left {crashed} (orphan {orphan})")
+    require(jobs["resume"]["res"][0]["epochs_resumed"] == DUR_EPOCH,
+            "durability resume: epochs resumed "
+            f"{jobs['resume']['res'][0]['epochs_resumed']}")
+    require(bins["crash"] == bins["sync"], "durability resume: the "
+            "resumed directory differs from the uninterrupted one")
+    # 5: a torn timestamps.bin has its size, so only the checksum sees it
+    torn = jobs["torn"]["res"][0]["plans"]
+    require(torn == [{**torn[0], "files_torn": 1}], f"durability torn: "
+            f"plan counters {torn}")
+    seg = p.trace_format.segment_name(DUR_EPOCH)
+    entry = p.trace_format.read_manifest(d["torn"])["segments"][DUR_EPOCH]
+    reason = p.trace_format.validate_segment(d["torn"], entry)
+    require(reason is not None and "checksum" in reason,
+            f"durability torn: validate_segment says {reason!r}")
+    report = p.faults.check_trace_invariants(d["torn"])
+    require(report["readable"] and [x["segment"] for x in report[
+        "skipped"]] == [seg] and report["n_records"] == N_RANKS * (
+        n_rec - DUR_FLUSH), f"durability torn: report {report}")
+    procs = durable_processes(p)
+    summary = {n: {k: v for k, v in j.items()
+                   if k not in ("res", "flushes", "error")}
+               for n, j in jobs.items()}
+    summary["mute"]["ranks_present"] = got_masks
+    summary["torn"]["report"] = {k: report[k] for k in (
+        "readable", "n_records", "skipped")}
+    summary["processes"] = procs
+    log(f"durability: sync = async bytes ({digest(bins['sync'])[:16]}); "
+        f"rank 1 mute in epoch {DUR_EPOCH}: ranks_present {mask[:3]}... "
+        f"({len(mask)} ranks), cuda = numpy bytes; crash at pre-manifest in "
+        f"epoch {DUR_EPOCH}, resumed = uninterrupted bytes, merged/ "
+        f"included; torn timestamps.bin reported: {reason}")
+    return summary
+
+
+def durable_processes(p) -> dict:
+    """The process case: ``DUR_PROCS`` processes over ``TorchDistComm``,
+    world A crashing and world B resuming, against the same calls
+    uninterrupted on ThreadComm in this process."""
+    root = os.path.join(WORK, "durability", "procs")
+    ref_dir, sd = os.path.join(root, "threads"), os.path.join(root, "procs")
+    ref = p.run_thread_world(DUR_PROCS, lambda comm, rank: durable_job(
+        comm, rank, p.REGISTRY, p.recorder, p.faults, ref_dir, BACKEND,
+        n_iter=DUR_PROC_ITER, flush_every=DUR_PROC_FLUSH))
+    out = {}
+    t = time.monotonic()
+    try:
+        p.run_process_world(DUR_PROCS, durable_proc_rank,
+                            (sd, "crash", BACKEND),
+                            deadline_s=MP_DEADLINE_S,
+                            workdir=os.path.join(root, "world_a"))
+        raise AssertionError("durability processes: world A did not fail")
+    except p.WorldError as e:
+        out["world_a_s"] = time.monotonic() - t
+        require("SimulatedCrash" in e.errors.get(0, ""),
+                f"durability processes: world A's errors {e.errors}")
+    m = p.trace_format.read_manifest(sd)
+    require([x["epoch"] for x in m["segments"]] == list(range(DUR_EPOCH))
+            and "merged" not in m, f"durability processes: world A left "
+            f"{m}")
+    t = time.monotonic()
+    res = p.run_process_world(DUR_PROCS, durable_proc_rank,
+                              (sd, "resume", BACKEND),
+                              deadline_s=MP_DEADLINE_S,
+                              workdir=os.path.join(root, "world_b"))
+    out["world_b_s"] = time.monotonic() - t
+    require(res[0]["epochs_resumed"] == DUR_EPOCH,
+            f"durability processes: resumed {res[0]['epochs_resumed']}")
+    got, want = bin_files(sd), bin_files(ref_dir)
+    require(any(x.startswith("merged") for x in got) and got == want,
+            "durability processes: the resumed directory differs from "
+            "the uninterrupted ThreadComm run's")
+    dz = [r["launches"].get("delta_zigzag", 0) for r in res]
+    require(all(n > 0 for n in dz), f"durability processes: delta_zigzag "
+            f"launches by rank {dz}")
+    out.update(flush_s_rank0=res[0]["flush_s"], delta_zigzag_by_rank=dz,
+               sha256=digest(got)[:16], threadcomm_flush_s_rank0=ref[0][
+                   "flush_s"])
+    log(f"durability processes: {DUR_PROCS} processes over TorchDistComm, "
+        f"world A (rank 0's commit of epoch {DUR_EPOCH} crashes) "
+        f"{out['world_a_s']:.2f} s, world B (resumed) "
+        f"{out['world_b_s']:.2f} s; bytes as the uninterrupted ThreadComm "
+        f"run ({out['sha256']}); delta_zigzag launches by rank {dz}")
+    return out
+
+
+# phase finalize_scaling: thousands of synthetic ranks.  2,048: at 4,096
+# the phase took 55.6-62.8 s on the card and a run 1,227.0 s, over its
+# 1,200 s limit
+FS_RANKS, FS_GROUPS, FS_CALLS = 2048, 32, 64
+
+
+def phase_finalize_scaling(p, ev, shapes) -> dict:
+    """Phase finalize_scaling (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+    root = os.path.join(WORK, "finalize_scaling")
+    shutil.rmtree(root, ignore_errors=True)
+    p.eb.set_default_backend("numpy")
+    try:
+        t = time.monotonic()
+        csts, cfgs = ev.wl.synth_rank_states(
+            FS_RANKS, n_groups=FS_GROUPS, n_calls=FS_CALLS,
+            pattern="mixed_all")
+        synth_s = time.monotonic() - t
+    finally:
+        p.eb.set_default_backend(BACKEND)
+    log(f"finalize_scaling: synth_rank_states({FS_RANKS}, n_groups="
+        f"{FS_GROUPS}, n_calls={FS_CALLS}, pattern='mixed_all') on numpy "
+        f"in {synth_s:.2f} s")
+    runs, out = {}, {"ranks": FS_RANKS, "synth_s": synth_s}
+    for name, topology, backend in (("flat-cuda", "flat", BACKEND),
+                                    ("tree-cuda", "tree", BACKEND),
+                                    ("flat-numpy", "flat", "numpy")):
+        d = os.path.join(root, name)
+        p.eb.set_default_backend(backend)
+        before = p.build.launch_counts()
+        fit_shapes = collections.Counter(shapes["fit_columns"])
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.monotonic()
+                if topology == "flat":
+                    merge, cfgres = p.ip.finalize_ranks(
+                        csts, cfgs, p.REGISTRY,
+                        fit_mode="cuda" if backend == "cuda"
+                        else "vectorized")
+                else:
+                    merge, cfgres = p.ip.tree_finalize_ranks(
+                        csts, cfgs, p.REGISTRY)
+                torch.cuda.synchronize()
+                fin_s = time.monotonic() - t
+                p.trace_format.write_trace(
+                    d, registry=p.REGISTRY, merged_cst=merge.merged_entries,
+                    unique_cfgs=cfgres.unique_cfgs,
+                    cfg_index=cfgres.cfg_index,
+                    rank_timestamps=[b""] * FS_RANKS, meta_extra={})
+                torch.cuda.synchronize()
+                all_s = time.monotonic() - t
+        finally:
+            p.eb.set_default_backend(BACKEND)
+        runs[name] = bin_files(d)
+        launches = counts_since(p.build, before)
+        new_fit = dict(collections.Counter(shapes["fit_columns"])
+                       - fit_shapes)
+        out[name] = {"finalize_s": fin_s, "with_write_s": all_s,
+                     "device_busy_ms": device_busy_ms(prof),
+                     "launches": launches, "fit_columns_shapes": {
+                         str(k): v for k, v in new_fit.items()},
+                     "merged_entries": len(merge.merged_entries),
+                     "rank_patterns": merge.n_rank_patterns,
+                     "unique_cfgs": len(cfgres.unique_cfgs),
+                     "bin_bytes": sum(map(len, runs[name].values()))}
+        log(f"finalize_scaling {name}: {FS_RANKS} ranks finalized in "
+            f"{fin_s:.3f} s ({all_s:.3f} s with the trace written); device "
+            f"busy {out[name]['device_busy_ms']:.3f} ms; launches "
+            f"{launches}; fit_columns shapes {new_fit}; "
+            f"{len(merge.merged_entries)} merged entries, "
+            f"{merge.n_rank_patterns} rank patterns, .bin "
+            f"{out[name]['bin_bytes']} B, sha256 {digest(runs[name])[:16]}")
+    require(runs["flat-cuda"] == runs["tree-cuda"] == runs["flat-numpy"],
+            "finalize_scaling: tree, flat and numpy bytes differ")
+    require(out["flat-cuda"]["launches"].get("fit_columns", 0) == 1,
+            f"finalize_scaling: the flat cuda finalize launched "
+            f"fit_columns {out['flat-cuda']['launches']}")
+    return out
 
 
 class FakeClock:
@@ -1958,16 +2412,22 @@ def teacher_forced(s, cfg, params, spec: ServeSpec) -> dict:
 
 
 PRIME_PROMPT = 2053   # a prime prompt length: the SSD runs Q 1, nc 2,053
+# the prime prefill's depth: 16 of mamba2's 48 layers (48 until the run's
+# time limit needed the room; its plain path took 55 s), held to the serve
+# run's bound a layer times 16
+PRIME_LAYERS = 16
 
 
 def prime_prefill(s, spec: ServeSpec) -> dict:
     """A prefill of SERVE_BATCH prompts of PRIME_PROMPT tokens on
-    ``spec.arch`` (full depth, bf16, the serve run's seeded weights): after
-    a warm-up, the kernel path with the launch counts set to 0 just before
-    and read just after, and its memory peak; then the plain path
-    ``spec.plain`` selects, and the logits of both within ``spec.rtol``."""
+    ``spec.arch`` (PRIME_LAYERS layers, bf16, the serve run's seeded
+    weights): after a warm-up, the kernel path with the launch counts set
+    to 0 just before and read just after, and its memory peak; then the
+    plain path ``spec.plain`` selects, and the logits of both within
+    ``spec.rtol`` a layer of the serve run times PRIME_LAYERS."""
     dev = torch.device("cuda")
-    cfg = s.get_config(spec.arch).replace(n_layers=spec.layers)
+    cfg = s.get_config(spec.arch).replace(n_layers=PRIME_LAYERS)
+    rtol = spec.rtol / spec.layers * PRIME_LAYERS
     params = s.get_model(cfg, dev).init_params(
         torch.Generator(device=dev).manual_seed(0))
     batch = {"tokens": np.random.RandomState(1).randint(
@@ -1998,17 +2458,18 @@ def prime_prefill(s, spec: ServeSpec) -> dict:
     require(bool(torch.isfinite(lg_kernel).all()),
             "prime prefill: logits not finite")
     rel = float((lg_kernel - lg_plain).norm() / lg_plain.norm())
-    require(rel <= spec.rtol,
+    require(rel <= rtol,
             f"prime prefill {cfg.name}: logits of the kernel and plain paths "
-            f"differ by {rel:.3g} (relative L2), over {spec.rtol}")
-    res = {"arch": cfg.name, "prompt": PRIME_PROMPT, "batch": SERVE_BATCH,
+            f"differ by {rel:.3g} (relative L2), over {rtol}")
+    res = {"arch": cfg.name, "layers": PRIME_LAYERS, "prompt": PRIME_PROMPT,
+           "batch": SERVE_BATCH,
            "prefill_ms": kernel_ms, "plain_prefill_ms": plain_ms,
            "logits_rel_err": rel, "launches": launches,
            "peak_bytes": peak, "peak_above_weights_bytes": peak - base}
     log(f"prime prefill {cfg.name}: {SERVE_BATCH} x {PRIME_PROMPT} tokens "
-        f"(SSD Q 1, {PRIME_PROMPT} chunks) kernel path {kernel_ms:.2f} ms, "
-        f"plain path {plain_ms:.2f} ms; logits relative L2 {rel:.3g} (limit "
-        f"{spec.rtol}); max memory allocated {peak} B ({peak - base} B above "
+        f"(SSD Q 1, {PRIME_PROMPT} chunks), {PRIME_LAYERS} layers: kernel "
+        f"path {kernel_ms:.2f} ms, plain path {plain_ms:.2f} ms; logits "
+        f"relative L2 {rel:.3g} (limit {rtol:.3g}); max memory allocated {peak} B ({peak - base} B above "
         f"the weights); launches {launches}")
     del params, lg_kernel, lg_plain
     torch.cuda.empty_cache()
@@ -2510,7 +2971,7 @@ EXAMPLES = {"torch_quickstart": (["--steps", str(EXAMPLE_STEPS)],
 
 # (arch, layers, prompt) of the sharded serve runs; SHARDED_NEW greedy
 # steps each, SERVE_BATCH prompts
-SHARDED_SERVES = (("qwen3-32b", 16, 1024), ("mamba2-370m", 48, 2048))
+SHARDED_SERVES = (("qwen3-32b", 8, 1024), ("mamba2-370m", 48, 2048))
 SHARDED_NEW = 32
 SHARDED_TRAIN_ARCH, SHARDED_TRAIN_STEPS = "qwen1.5-0.5b", 2
 
@@ -2741,18 +3202,56 @@ DRYRUN_CPU_CHECK = (("qwen3-32b", "prefill_32k"), ("qwen1.5-0.5b", "train_4k"),
                     ("deepseek-moe-16b", "decode_32k"))
 
 
-def phase_dryrun(s) -> dict:
-    """Phase 11b (see the module docstring)."""
-    # shape by shape, so that the long train cells start first
-    cells = [(a, sh, mk, "cuda", False, False) for sh in s.SHAPES
-             for mk, archs in (("single", s.all_arch_names()),
-                               ("multi", DRYRUN_MULTI)) for a in archs]
-    out, on_cpu = {}, {}
-    for r in s.dryrun.run_cells(
-            [(a, sh, "single", "cpu", False, False)
-             for a, sh in DRYRUN_CPU_CHECK], DRYRUN_JOBS):
-        on_cpu[f"{r['arch']} {r['shape']} single"] = r
-    for r in s.dryrun.run_cells(cells, DRYRUN_JOBS):
+def dryrun_cells(s) -> list:
+    """The dryrun phase's cells, shape by shape, so that the long train
+    cells start first."""
+    return [(a, sh, mk, "cuda", False, False) for sh in s.SHAPES
+            for mk, archs in (("single", s.all_arch_names()),
+                              ("multi", DRYRUN_MULTI)) for a in archs]
+
+
+def start_dryrun(s) -> dict:
+    """Start the dryrun phase's one pool of worker processes on a thread
+    of its own: the roofline cells and the cpu checks first, then every
+    cell.  Returns the handle ``phase_dryrun`` joins: the results, the
+    seconds the pool took and what it raised."""
+    job = {"results": [], "error": None, "seconds": None}
+    cells = ([("roofline", a, sh, "cuda") for a, sh in ROOFLINE_CELLS]
+             + [(a, sh, "single", "cpu", False, False)
+                for a, sh in DRYRUN_CPU_CHECK] + dryrun_cells(s))
+
+    def run():
+        t = time.monotonic()
+        try:
+            job["results"].extend(s.dryrun.run_cells(
+                cells, DRYRUN_JOBS, fn=dry_or_roofline))
+        except BaseException as e:  # noqa: BLE001  (raised by the phase)
+            job["error"] = e
+        job["seconds"] = time.monotonic() - t
+
+    job["thread"] = threading.Thread(target=run, name="dryrun", daemon=True)
+    job["thread"].start()
+    return job
+
+
+def phase_dryrun(s, job: dict) -> dict:
+    """Phase 11b (see the module docstring): the results of the pool
+    ``start_dryrun`` started, checked."""
+    cells = dryrun_cells(s)
+    out, on_cpu, roof = {}, {}, []
+    t = time.monotonic()
+    job["thread"].join()
+    if job["error"] is not None:
+        raise job["error"]
+    log(f"dry run: the worker pool took {job['seconds']:.1f} s beside "
+        f"phases 2-3; this phase waited {time.monotonic() - t:.1f} s for it")
+    for r in job["results"]:
+        if r.get("kind") == "roofline":
+            roof.append(r)
+            continue
+        if r["device"] == "cpu":
+            on_cpu[f"{r['arch']} {r['shape']} single"] = r
+            continue
         log(s.dryrun.format_result(r))
         key = f"{r['arch']} {r['shape']} {r['mesh']}"
         require(r["status"] != "fail", f"dry run {key}: {r.get('error')}\n"
@@ -2783,7 +3282,60 @@ def phase_dryrun(s) -> dict:
         require(all(same.values()), f"dry run {key}: cpu {r['memory']}, "
                 f"{r['flops_per_chip']}; cuda {out[key]}")
     log(f"dry run: {n_ok} cells ok, {n_skip} skipped, on a fake 256-rank "
-        f"(512 for the multi-pod cells) mesh")
+        f"(512 for the multi-pod cells) mesh, with the roofline cells in "
+        f"{job['seconds']:.1f} s")
+    out["roofline"] = roofline_cells(s, out, roof)
+    return out
+
+
+def dry_or_roofline(cell) -> dict:
+    """A dry-run cell, or a ("roofline", arch, shape, device) one: the
+    worker function of the dryrun phase's processes."""
+    from repro_torch.launch import dryrun, roofline
+    if cell[0] == "roofline":
+        return dict(roofline.run_one(cell[1:]), kind="roofline")
+    arch, shape, mesh, device, smoke, full_depth = cell
+    return dryrun.run_cell(arch, shape, mesh, device=device, smoke=smoke,
+                           full_depth=full_depth)
+
+
+# the roofline report's cells, each against the dry run's same cell
+ROOFLINE_CELLS = (("qwen3-32b", "train_4k"), ("mamba2-370m", "prefill_32k"),
+                  ("deepseek-moe-16b", "decode_32k"),
+                  ("hymba-1.5b", "long_500k"))
+
+
+def roofline_cells(s, dry: dict, results: list) -> dict:
+    """The results of ``roofline.analyze_cell`` for ``ROOFLINE_CELLS`` on
+    ``cuda`` fake tensors (run in the dry run's worker processes): each
+    cell's extrapolated FLOPs and collective bytes must be the dry run's
+    (the clamp of a negative per-layer delta must not bind), and
+    ``report()`` prints them."""
+    art = os.path.join(WORK, "roofline")
+    out = {}
+    require(len(results) == len(ROOFLINE_CELLS),
+            f"roofline: {len(results)} cells")
+    for r in results:
+        r.pop("kind", None)
+        key = f"{r['arch']} {r['shape']} single"
+        require(r["status"] == "ok", f"roofline {key}: {r}")
+        s.roofline.save(r, art)
+        log(s.roofline.format_line(r))
+        ext, d = r["extrapolated"], dry[key]
+        same = {"flops": ext["flops"] == d["flops_per_chip"],
+                "collectives": ext["coll"] == d["collectives"]["total"],
+                "no clamp": min(r["per_layer_delta"].values()) >= 0}
+        require(all(same.values()), f"roofline {key}: {same}; "
+                f"{ext} against {d['flops_per_chip']}, "
+                f"{d['collectives']['total']}")
+        out[key] = {"extrapolated": ext,
+                    "per_layer_delta": r["per_layer_delta"],
+                    "roofline": {k: r["roofline"][k] for k in (
+                        "t_compute_s", "t_memory_s", "t_memory_op_s",
+                        "t_collective_s", "bottleneck",
+                        "useful_flop_ratio", "roofline_fraction")}}
+    log(f"roofline: {len(out)} cells as the dry run's, fake 256-rank "
+        f"mesh:\n{s.roofline.report(art)}")
     return out
 
 
@@ -3165,9 +3717,17 @@ def phase_evaluation(ev, smi: str) -> dict:
     return out
 
 
-def cuda_ms(fn, iters: int = 200, warmup: int = 5) -> float:
-    """Mean ms per call of ``fn`` between CUDA events, after warm-up."""
-    for _ in range(warmup):
+def cuda_ms(fn, iters: int = 200, warmup: int = 5,
+            budget_s: float = 2.0) -> float:
+    """Mean ms per call of ``fn`` between CUDA events, after warm-up: over
+    ``iters`` calls, or as many as fit ``budget_s`` by the first call's
+    time (at least 3), so that a call of seconds is not timed 200 times."""
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = max(time.perf_counter() - t, 1e-9)
+    iters = max(3, min(iters, int(budget_s / one)))
+    for _ in range(min(warmup, iters) - 1):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -3676,7 +4236,10 @@ class MeasuredCall:
         del ref
         bytes_ms = self.nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = self.nops / self.peak * 1e3
-        recorded, prof_iters = {}, 20
+        # a window of at most about 1,000 launches of each kernel: the
+        # profiler drops some of a larger one (the SSD at Q 1 launches
+        # each pass once a chunk group)
+        recorded, prof_iters = {}, max(2, min(20, 1000 // self.per_call))
         return {
             "max_abs_err": err, "ms": cuda_ms(self.run, iters=self.iters),
             "plain_ms": cuda_ms(plain, iters=max(self.iters // 4, 5)),
@@ -3912,7 +4475,10 @@ def main() -> int:
     from repro_torch.core import encode_backend as eb
     from repro_torch.core import recorder, streaming
     from repro_torch.core.apis import posix
-    from repro_torch.core.comm import run_process_world, run_thread_world
+    from repro_torch.core import faults
+    from repro_torch.core import interprocess
+    from repro_torch.core.comm import (WorldError, run_process_world,
+                                       run_thread_world)
     from repro_torch.core.patterns import IntraPatternTracker
     from repro_torch.core import trace_format
     from repro_torch.core.reader import TraceReader
@@ -3948,7 +4514,7 @@ def main() -> int:
     from repro_torch.core import baselines
     from repro_torch.configs import all_arch_names
     from repro_torch.distributed.sharding import map_leaves
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, roofline
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.shapes import SHAPES, ShapeSpec, applicable
     from repro_torch.launch.steps import build_cell, build_cell_batch
@@ -3979,7 +4545,8 @@ def main() -> int:
                         IntraPatternTracker=IntraPatternTracker,
                         expand_grammar=expand_grammar,
                         trace_format=trace_format, TraceService=TraceService,
-                        QUERY_FAMILIES=QUERY_FAMILIES)
+                        QUERY_FAMILIES=QUERY_FAMILIES, faults=faults,
+                        ip=interprocess, WorldError=WorldError)
     srv = SimpleNamespace(get_config=get_config,
                           get_smoke_config=get_smoke_config,
                           get_model=get_model, ServeEngine=ServeEngine,
@@ -4000,6 +4567,7 @@ def main() -> int:
                           ShapeSpec=ShapeSpec, SHAPES=SHAPES,
                           applicable=applicable, map_leaves=map_leaves,
                           make_debug_mesh=make_debug_mesh, dryrun=dryrun,
+                          roofline=roofline,
                           all_arch_names=all_arch_names)
     ev = SimpleNamespace(wl=workloads, bl=baselines, eb=eb, recorder=recorder,
                          build=_build, Recorder=recorder.Recorder,
@@ -4018,6 +4586,7 @@ def main() -> int:
 
     with Phase("build"):
         build_s = phase_build(_build)
+    dry_job = start_dryrun(srv)
     serve_calls = serve_kernel_calls(srv)
     with Phase("kernels"):
         ssd_memory = phase_kernels(k, serve_calls)
@@ -4071,12 +4640,16 @@ def main() -> int:
 
     def flush_shim(ticks, block_records, backend=None,
                    _real=streaming.compress_timestamps_blocked):
-        before = _build.launch_counts().get("delta_zigzag", 0)
+        # the launches of this thread, counted where the kernel launches:
+        # ranks (and their pool threads) flush at once in the durability
+        # phase
+        before = _build.thread_launch_counts().get("delta_zigzag", 0)
         blocks = _real(ticks, block_records, backend=backend)
-        after = _build.launch_counts().get("delta_zigzag", 0)
+        after = _build.thread_launch_counts().get("delta_zigzag", 0)
         if len(ticks) and eb.resolve(backend, len(ticks)) == "cuda":
-            flushes.append((len(ticks), block_records, len(blocks),
-                            after - before))
+            with lock:
+                flushes.append((len(ticks), block_records, len(blocks),
+                                after - before))
         return blocks
     for mod, name, fn in ((eb, "pack_uvarints_batch", pack_shim),
                           (eb, "run_starts", starts_shim),
@@ -4101,6 +4674,10 @@ def main() -> int:
         n_scans, n_digrams = packs["run_starts"], packs["digrams"]
         with Phase("multiproc"):
             multiproc = phase_multiproc(p, ior_runs, ior_counts)
+        with Phase("durability"):
+            durability = phase_durability(p, flushes)
+        with Phase("finalize_scaling"):
+            scaling = phase_finalize_scaling(p, ev, shapes)
         serves = {}
         with Phase("serve"):
             serves[SERVE_ARCH] = phase_serve(srv, SERVE_SPECS[0])
@@ -4180,7 +4757,7 @@ def main() -> int:
                     f"{name}: the kernels phase checked {call[0]}, which "
                     f"no serve run gave it")
     with Phase("dryrun"):
-        dry = phase_dryrun(srv)
+        dry = phase_dryrun(srv, dry_job)
     with Phase("examples"):
         examples = phase_examples(srv)
     log("serve summary: " + json.dumps(
@@ -4188,6 +4765,8 @@ def main() -> int:
          for a, r in serves.items()}))
     log("prime prefill summary: " + json.dumps(prime))
     log("multiproc summary: " + json.dumps(multiproc))
+    log("durability summary: " + json.dumps(durability))
+    log("finalize_scaling summary: " + json.dumps(scaling))
     log("evaluation summary: " + json.dumps(evaluation))
     log("examples summary: " + json.dumps(examples))
     log("sharded summary: " + json.dumps(sharded))

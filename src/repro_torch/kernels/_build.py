@@ -15,7 +15,9 @@ The wrappers (``delta_encode/ops.py``, ``grammar_stats/ops.py``,
 :func:`launch`, which raises on a nonzero CUDA error and adds one to the
 kernel's launch count -- the count that shows a run really went through
 the kernel.  ThreadComm ranks launch from several threads, so the counts
-and the library cache are guarded by locks.
+and the library cache are guarded by locks, and each thread also keeps
+its own tally (:func:`thread_launch_counts`), which tells the launches of
+one rank's call apart from those of ranks running at the same time.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ _lib_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _count_lock = threading.Lock()
 _launches: Dict[str, int] = {}
+_own = threading.local()        # this thread's launches, never reset
 
 
 def nvcc() -> str:
@@ -164,8 +167,19 @@ def reset_launches() -> None:
         _launches.clear()
 
 
+def thread_launch_counts() -> Dict[str, int]:
+    """The calling thread's launches since it started: a running tally that
+    :func:`reset_launches` leaves alone, read as the difference of two
+    readings around a call."""
+    return dict(getattr(_own, "counts", {}))
+
+
 def count_launch(kernel: str) -> None:
-    """Add one launch of ``kernel`` (what :func:`launch` does after a
-    successful launch)."""
+    """Add one launch of ``kernel`` to the counts and to the calling
+    thread's tally (what :func:`launch` does after a successful launch)."""
     with _count_lock:
         _launches[kernel] = _launches.get(kernel, 0) + 1
+    own = getattr(_own, "counts", None)
+    if own is None:
+        own = _own.counts = {}
+    own[kernel] = own.get(kernel, 0) + 1

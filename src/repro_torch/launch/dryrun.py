@@ -33,7 +33,7 @@ import json
 import os
 import time
 import traceback
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -140,31 +140,47 @@ def layout_departures(cfg: ModelConfig, shape: ShapeSpec, mesh
     return out
 
 
-def analyze_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, n_chips: int,
-                 full_depth: bool = False) -> Dict[str, Any]:
-    """Build the cell at full depth (its arguments and their per-chip
-    bytes) and run it: at full depth when ``full_depth``, else at the
-    stacked depths ``DEPTHS``, with FLOPs, collective bytes and the peak
-    estimate extrapolated along the line the two give (every stacked
-    layer is the same step on the same shapes, so FLOPs and collectives
-    grow by the same amount a layer; the peak is an estimate)."""
+def depth_runs(cfg: ModelConfig, shape: ShapeSpec, mesh, n_chips: int,
+               depths, accum: int) -> Tuple[Dict[str, Any], list]:
+    """Under ``FakeTensorMode``: build the cell at full depth (its
+    ``build_cell`` meta: the per-chip argument, state and batch bytes) and
+    run it at each stacked depth of ``depths`` inside a ``StepCounter``
+    (``step_analysis.analyze``).  The dry run and the roofline report
+    both measure a cell through this function."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    accum = accum_steps(cfg, shape)
     mf = model_flops_per_chip(cfg, shape, n_chips)
-    depth = stacked_depth(cfg)
     with FakeTensorMode():
         _, _, meta = build_cell(cfg, shape, mesh, accum_steps=accum)
         runs = []
-        for d in (depth,) if full_depth else DEPTHS:
+        for d in depths:
             step, args, m = build_cell(at_depth(cfg, d), shape, mesh,
                                        accum_steps=accum)
             runs.append(step_analysis.analyze(step, args, m, mf,
                                               hbm_bytes(m, shape.kind)))
+    return meta, runs
+
+
+def analyze_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, n_chips: int,
+                 full_depth: bool = False) -> Dict[str, Any]:
+    """Build the cell at full depth (its arguments and their per-chip
+    bytes) and run it: at full depth when ``full_depth``, else at the
+    stacked depths ``DEPTHS``, with FLOPs, bytes accessed, collective
+    bytes and the peak estimate extrapolated along the line the two give
+    (every stacked layer is the same step on the same shapes, so FLOPs
+    and collectives grow by the same amount a layer; the peak is an
+    estimate)."""
+    accum = accum_steps(cfg, shape)
+    mf = model_flops_per_chip(cfg, shape, n_chips)
+    depth = stacked_depth(cfg)
+    meta, runs = depth_runs(cfg, shape, mesh, n_chips,
+                            (depth,) if full_depth else DEPTHS, accum)
     if full_depth:
         an = runs[0]
     else:
         a, b = runs
         an = {"flops": _extrapolate(a["flops"], b["flops"], depth),
+              "bytes_accessed": _extrapolate(a["bytes_accessed"],
+                                             b["bytes_accessed"], depth),
               "memory": {"peak_bytes_estimate": _extrapolate(
                   a["memory"]["peak_bytes_estimate"],
                   b["memory"]["peak_bytes_estimate"], depth)},
@@ -176,7 +192,8 @@ def analyze_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, n_chips: int,
                 if isinstance(v, dict) else _extrapolate(v, w, depth))
     an["memory"]["argument_bytes"] = int(meta["arg_bytes"])
     an["roofline"] = step_analysis.roofline_terms(
-        an["flops"], hbm_bytes(meta, shape.kind), an["collectives"], mf)
+        an["flops"], hbm_bytes(meta, shape.kind), an["collectives"], mf,
+        op_bytes=an["bytes_accessed"])
     an.update(accum_steps=accum, model_flops_per_chip=mf,
               depths=[depth] if full_depth else list(DEPTHS),
               stacked_depth=depth)
@@ -303,17 +320,18 @@ def _run_one(cell) -> Dict[str, Any]:
                     full_depth=full_depth)
 
 
-def run_cells(cells, jobs: int = 1):
-    """``run_cell`` over ``cells`` ((arch, shape, mesh, device, smoke,
-    full_depth) tuples), in order; with ``jobs`` > 1 in that many worker
-    processes, each rank 0 of a fake group of its own."""
+def run_cells(cells, jobs: int = 1, fn=_run_one):
+    """``fn`` over ``cells``, in order (by default ``run_cell`` over
+    (arch, shape, mesh, device, smoke, full_depth) tuples); with ``jobs``
+    > 1 in that many worker processes, each rank 0 of a fake group of its
+    own (``fn`` must then be a module-level function)."""
     if jobs <= 1:
         for c in cells:
-            yield _run_one(c)
+            yield fn(c)
         return
     import multiprocessing as mp
     with mp.get_context("spawn").Pool(jobs) as pool:
-        yield from pool.imap(_run_one, cells)
+        yield from pool.imap(fn, cells)
 
 
 if __name__ == "__main__":

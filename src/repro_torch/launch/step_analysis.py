@@ -15,6 +15,13 @@ shards:
     redistributions, the model's own all-to-alls and all-reduces), counted
     per kind with their input bytes -- per-chip bytes put on the wire --
     and whether their group spans more than one node of 8 GPUs;
+  * **bytes accessed** sum, for every op counted, the bytes of its tensor
+    inputs and outputs on the local shards (a view aliases its input and
+    moves none; an op that returns no tensor, such as ``prim.device``,
+    moves none).  With no fusion this is an upper bound of what the step
+    moves through HBM -- the counterpart of the reference's
+    ``cost_analysis()`` "bytes accessed" on its CPU backend, which is an
+    upper bound too;
   * **memory**: the per-chip argument bytes come from the local shapes;
     the peak is an estimate: the most bytes that the storages of the
     arguments' local shards and of the local ops' outputs held at once
@@ -25,8 +32,11 @@ DTensor's sharding propagation runs an (op, shapes, placements) it has not
 cached on global-shape fake tensors (``ShardingPropagator.
 _propagate_tensor_meta_non_cached``; some ops it never caches, e.g.
 ``cat`` in torch 2.11, whose global fake tensors ran to 64 GiB at
-qwen3-32b's ``prefill_32k``).  The counter leaves out every op that runs
-inside that method, so a step's first run counts as its later ones
+qwen3-32b's ``prefill_32k``), and the strategy of an op it has no rule
+for through the op's decomposition (``propagate_op_sharding_non_cached``;
+e.g. ``softplus_backward``'s elementwise ops).  The counter leaves out
+every op that runs inside either method, so a step's first run counts as
+its later ones
 (``tests/test_torch_dryrun.py`` holds a cold and a warm product to the
 same count).  Under a fake mode a
 collective's ``wait_tensor`` returns its input, as the real one does (its
@@ -98,6 +108,14 @@ def _kernel_flops() -> Dict[Any, Any]:
             ops.ssd_scan: ssd_scan_flops}
 
 
+#: the methods of DTensor's ``ShardingPropagator`` whose ops the counter
+#: leaves out: the output metadata of an (op, shapes, placements) it has
+#: not cached, and the strategy of an op it propagates through its
+#: decomposition (both run on global-shape fake tensors)
+_PROPAGATION = ("_propagate_tensor_meta_non_cached",
+                "propagate_op_sharding_non_cached")
+
+
 def _group_spans_nodes(group_name: str) -> bool:
     import torch.distributed as dist
     from torch.distributed.distributed_c10d import _resolve_process_group
@@ -106,8 +124,8 @@ def _group_spans_nodes(group_name: str) -> bool:
 
 
 class StepCounter(TorchDispatchMode):
-    """Counts per-chip FLOPs, collectives and the peak of live storage
-    bytes of what runs inside it (see the module docstring); ``track``
+    """Counts per-chip FLOPs, bytes accessed, collectives and the peak of
+    live storage bytes of what runs inside it (see the module docstring); ``track``
     adds the storages of tensors that exist before it (the arguments)."""
 
     def __init__(self):
@@ -117,6 +135,7 @@ class StepCounter(TorchDispatchMode):
         from ..kernels.ssd_scan import ops as _ssd          # noqa: F401
         from ..models import layers as _layers              # noqa: F401
         self.flops = 0
+        self.bytes_accessed = 0
         self.flops_by_op: Dict[str, int] = {}
         self.coll = {k: {"count": 0, "bytes": 0, "cross_node_bytes": 0}
                      for k in KINDS}
@@ -146,22 +165,28 @@ class StepCounter(TorchDispatchMode):
     def __enter__(self):
         from torch.distributed.tensor._sharding_prop import \
             ShardingPropagator as prop
-        meta = self._meta = prop._propagate_tensor_meta_non_cached
-
-        def propagating(sp, op_schema):
-            self._propagating += 1
-            try:
-                return meta(sp, op_schema)
-            finally:
-                self._propagating -= 1
         self._propagating = 0
-        prop._propagate_tensor_meta_non_cached = propagating
+        self._saved = []
+        for name in _PROPAGATION:
+            real = getattr(prop, name, None)
+            if real is None:
+                continue
+
+            def propagating(sp, op_schema, _real=real):
+                self._propagating += 1
+                try:
+                    return _real(sp, op_schema)
+                finally:
+                    self._propagating -= 1
+            self._saved.append((name, real))
+            setattr(prop, name, propagating)
         return super().__enter__()
 
     def __exit__(self, *exc):
         from torch.distributed.tensor._sharding_prop import \
             ShardingPropagator as prop
-        prop._propagate_tensor_meta_non_cached = self._meta
+        for name, real in self._saved:
+            setattr(prop, name, real)
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -175,9 +200,14 @@ class StepCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if self._propagating:
             return out                  # DTensor's sharding propagation
-        for t in tree_leaves(out):
-            if isinstance(t, torch.Tensor):
-                self._hold(t)
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        for t in outs:
+            self._hold(t)
+        if outs and not func.is_view:
+            ins = [t for t in tree_leaves((args, kwargs))
+                   if isinstance(t, torch.Tensor)]
+            self.bytes_accessed += sum(t.numel() * t.element_size()
+                                       for t in ins + outs)
         packet = func._overloadpacket
         n = 0
         if packet in flop_registry:
@@ -214,15 +244,22 @@ class StepCounter(TorchDispatchMode):
 
 
 def roofline_terms(flops: float, hbm_bytes: float, coll: Dict[str, Any],
-                   model_flops_per_chip: float = 0.0) -> Dict[str, Any]:
+                   model_flops_per_chip: float = 0.0,
+                   analytic_bytes_per_chip: float = 0.0,
+                   op_bytes: float = 0.0) -> Dict[str, Any]:
     """Three roofline terms in seconds from per-chip quantities: compute
     (FLOPs over the bf16 peak), memory (``hbm_bytes`` -- what the step must
     move: arguments read once and written back where the step updates
     them -- over HBM bandwidth) and collectives (each collective's bytes
     over NVLink within a node, over the network where its group spans
-    nodes)."""
+    nodes).  Where ``analytic_bytes_per_chip`` is given (the roofline
+    report's traffic model) the memory term and the bottleneck use it
+    instead.  ``op_bytes`` (``StepCounter.bytes_accessed``, an unfused
+    upper bound) gives ``t_memory_op_s`` beside them, as the reference's
+    "bytes accessed" gives its ``t_memory_hlo_s``."""
     t_compute = flops / PEAK_FLOPS
-    t_memory = hbm_bytes / HBM_BW
+    t_memory = (analytic_bytes_per_chip if analytic_bytes_per_chip
+                else hbm_bytes) / HBM_BW
     cross = float(coll.get("cross_node_bytes", 0))
     t_coll = (float(coll.get("total_bytes", 0)) - cross) / NVLINK_BW \
         + cross / NET_BW
@@ -232,7 +269,10 @@ def roofline_terms(flops: float, hbm_bytes: float, coll: Dict[str, Any],
         "flops_per_chip": float(flops), "hbm_bytes_per_chip": float(hbm_bytes),
         "coll_bytes_per_chip": float(coll.get("total_bytes", 0)),
         "t_compute_s": t_compute, "t_memory_s": t_memory,
-        "t_collective_s": t_coll, "bottleneck": dom}
+        "t_collective_s": t_coll, "bottleneck": dom,
+        "analytic_bytes_per_chip": float(analytic_bytes_per_chip),
+        "op_bytes_per_chip": float(op_bytes),
+        "t_memory_op_s": op_bytes / HBM_BW}
     if model_flops_per_chip:
         out["model_flops_per_chip"] = model_flops_per_chip
         out["useful_flop_ratio"] = model_flops_per_chip / flops if flops \
@@ -264,6 +304,8 @@ def analyze(step, args, meta: Dict[str, Any],
     coll = counter.collectives()
     terms = roofline_terms(counter.flops, hbm_bytes if hbm_bytes is not None
                            else meta["arg_bytes"], coll,
-                           model_flops_per_chip)
+                           model_flops_per_chip,
+                           op_bytes=counter.bytes_accessed)
     return {"memory": mem, "collectives": coll, "flops": counter.flops,
+            "bytes_accessed": counter.bytes_accessed,
             "flops_by_op": counter.flops_by_op, "roofline": terms}

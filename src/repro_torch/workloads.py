@@ -14,6 +14,9 @@ evaluation needs (it imports neither JAX nor the JAX package):
                    Recorder, then the inter-process stage
                    (``finalize_recorders``), and returns the sizes of
                    Figs 4-7 and Table 4.
+``synth_rank_states`` -- a direct CST/CFG synthesizer for the
+                   finalize-scaling experiments: thousands of simulated
+                   rank states without a Recorder per call.
 
 Each driver runs ONE rank's call stream against a fresh Recorder (or a
 baseline ``ToolAdapter``) attached behind the traced facades; the caller
@@ -30,13 +33,17 @@ records the path given to ``open()``, so equal bytes need equal
 from __future__ import annotations
 
 import os
+import random
 import tempfile
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from .core.apis import framework as frame
 from .core.apis import posix, shardio
+from .core.encoding import Handle, encode_signature
 from .core.interprocess import finalize_ranks, tree_finalize_ranks
+from .core.patterns import IntraPatternTracker
 from .core.recorder import Recorder, RecorderConfig, attach, detach
+from .core.sequitur import Sequitur
 from .core.specs import REGISTRY
 
 
@@ -201,3 +208,105 @@ def finalize_recorders(recorders: List[Recorder],
         "ts_bytes": ts_bytes,
         "n_rank_patterns": merge.n_rank_patterns,
     }
+
+
+# ---------------------------------------------------------------------------
+# synthetic rank states (finalize-scaling experiments)
+# ---------------------------------------------------------------------------
+
+
+def synth_rank_states(nprocs: int, *, n_groups: int = 32, n_calls: int = 64,
+                      pattern: str = "linear", chunk: int = 4096,
+                      seed: int = 0) -> Tuple[List[List[bytes]], List[bytes]]:
+    """Build (rank_csts, rank_cfgs) for ``nprocs`` simulated ranks directly.
+
+    Each rank performs, per group g (a distinct shared file), one pwrite at
+    ``base_g(rank)`` followed by ``n_calls - 1`` strided pwrites -- the IOR
+    shape.  ``pattern`` controls the inter-process structure of the bases:
+
+      linear     base = rank*chunk + g*BIG   (merges to one RankPattern)
+      constant   base = g*BIG                (identical on every rank)
+      irregular  base = random per (rank, g) (defeats the rank fit)
+      nested     rank-linear base AND rank-linear stride: the group merges
+                 to ``IterPattern(RankPattern, RankPattern)`` -- the
+                 doubly-nested shape of paper Fig 3(c)
+      multi      lseek groups whose OFFSET-role argument and OFFSET-role
+                 return are tracked as one joint two-component run
+      mixed      per-group random choice of linear/constant/irregular
+                 (the original set, kept bit-stable for old seeds)
+      mixed_all  per-group random choice across all five kinds
+
+    The per-rank grammar (CFG) is structurally identical across ranks, so
+    it is built once with run-length pushes; per rank only the distinct
+    offset-bearing signatures are re-encoded.  Offset encoding goes through
+    ``IntraPatternTracker.encode_many`` (the vectorized intra-process hot
+    loop): the O(calls) per-(rank, group) work is a NumPy pass, with only
+    O(groups) Python-level signature encodes per rank.  Both the encoding
+    and the grammar's packing run on the module-default encode backend.
+    """
+    pw = REGISTRY.id_of("pwrite")
+    lk = REGISTRY.id_of("lseek")
+    rng = random.Random(seed)
+    big = 1 << 24
+    stride = nprocs * chunk
+    plans = []  # per group: (kind, irregular per-rank bases or None)
+    for g in range(n_groups):
+        kind = pattern
+        if pattern == "mixed":
+            kind = rng.choice(["linear", "constant", "irregular"])
+        elif pattern == "mixed_all":
+            kind = rng.choice(["linear", "constant", "irregular",
+                               "nested", "multi"])
+        bases = ([rng.randrange(1 << 30) for _ in range(nprocs)]
+                 if kind == "irregular" else None)
+        plans.append((kind, bases))
+
+    # grammar: per group, [pwrite-head, pwrite-pattern^(n_calls-1)]; terminal
+    # ids are the same on every rank because the structure is
+    grammar = Sequitur()
+    t = 0
+    for g in range(n_groups):
+        grammar.push(t)          # head signature
+        t += 1
+        if n_calls > 1:
+            grammar.push(t, n_calls - 1)  # shared IterPattern signature
+            t += 1
+    cfg = grammar.serialize()
+
+    rank_csts: List[List[bytes]] = []
+    for r in range(nprocs):
+        tracker = IntraPatternTracker()
+        cst: List[bytes] = []
+        for g, (kind, bases) in enumerate(plans):
+            if kind == "constant":
+                base = g * big
+            elif kind == "irregular":
+                base = bases[r]
+            else:  # linear / nested / multi: rank-linear base
+                base = r * chunk + g * big
+            # nested: the stride itself is rank-linear (paper Fig 3c)
+            step = (nprocs + r) * chunk if kind == "nested" else stride
+            if kind == "multi":
+                # lseek: OFFSET-role arg and OFFSET-role return form one
+                # joint two-component run (tracked and decoded together)
+                offs = [(base + i * step, base + i * step)
+                        for i in range(n_calls)]
+                enc = tracker.encode_many(("lseek", g), offs)
+                cst.append(encode_signature(lk, 0, 0,
+                                            (Handle(g), enc[0][0], 0),
+                                            enc[0][1]))
+                if n_calls > 1:
+                    cst.append(encode_signature(lk, 0, 0,
+                                                (Handle(g), enc[1][0], 0),
+                                                enc[1][1]))
+                continue
+            offs = [(base + i * step,) for i in range(n_calls)]
+            enc = tracker.encode_many(("pwrite", g), offs)
+            # head + (single) pattern signature, matching the grammar above
+            cst.append(encode_signature(pw, 0, 0,
+                                        (Handle(g), 64, enc[0][0]), 64))
+            if n_calls > 1:
+                cst.append(encode_signature(pw, 0, 0,
+                                            (Handle(g), 64, enc[1][0]), 64))
+        rank_csts.append(cst)
+    return rank_csts, [cfg] * nprocs

@@ -245,3 +245,50 @@ def default_group(comm, rank, init_file):
         return own.rank, own.size, got, word
     finally:
         dist.destroy_process_group()
+
+
+#: the calls of a durability rank and the records after which it flushes
+DURABLE_CALLS, DURABLE_BOUNDS = 24, (8, 14, 20)
+
+
+def durability_rank(comm, rank, pkg, trace_dir, part, backend="numpy"):
+    """Rank 1 mute in epoch 0 (a seeded ``FaultPlan`` on every rank, then
+    recovered), flushes after ``DURABLE_BOUNDS`` records, a finalize.
+    ``part`` "whole" runs it all; "crash" stops at epoch 2, whose commit
+    crashes at ``pre-manifest`` on rank 0 (the process dies holding the
+    epoch's records); "resume" is the restarted job: it records epoch 2's
+    and epoch 3's calls again, at the same ticks, into the same directory
+    and finalizes.  Returns the epoch counters and the first flush's
+    ``ranks_present``."""
+    rec_mod, registry = _pkg(pkg, backend)
+    faults = importlib.import_module(f"{pkg}.core.faults")
+    calls = _calls(registry, rank, DURABLE_CALLS - 2, 60)
+    bounds = (0,) + DURABLE_BOUNDS + (len(calls),)
+    rec = rec_mod.Recorder(rank=rank, config=rec_mod.RecorderConfig(
+        trace_dir=trace_dir, flush_timeout_s=2.0, encode_backend=backend))
+
+    def feed(epoch):
+        for i in range(bounds[epoch], bounds[epoch + 1]):
+            f, args, ret = calls[i]
+            rec.record(f, args, ret, 0, 2 * i, 2 * i + 1)
+
+    present = None
+    if part in ("whole", "crash"):
+        faults.install(faults.FaultPlan(seed=7, dead_ranks=(1,)))
+        comm.barrier()      # the flush's timeouts start from one moment
+        feed(0)
+        rec.flush(comm)
+        present = list(rec.last_flush_outcome.ranks_present)
+        comm.barrier()
+        faults.uninstall()                  # the mute rank recovers
+        comm.barrier()
+        feed(1)
+        rec.flush(comm)
+        if part == "crash" and rank == 0:
+            faults.install(faults.FaultPlan(crash_point="pre-manifest"))
+    feed(2)
+    rec.flush(comm)
+    feed(3)
+    rec.finalize(comm)
+    return (present, rec.epochs_resumed, rec.epochs_restored,
+            rec.epochs_degraded)

@@ -341,11 +341,15 @@ def test_digram_codes(dev, n, T):
 
 def test_launches_are_counted(dev):
     _build.reset_launches()
+    mine = _build.thread_launch_counts()
     de.delta_zigzag(_u32(10, 0).to(dev))
     de.delta_zigzag(torch.empty(0, dtype=torch.int32, device=dev))  # no-op
     de.uvarint_pack64(_u64(5000, 0).to(dev))
     de.uvarint_pack64(torch.empty(0, dtype=torch.int64, device=dev))
     assert _build.launch_counts() == {"delta_zigzag": 1, "uvarint_pack64": 1}
+    now = _build.thread_launch_counts()
+    assert {k: now[k] - mine.get(k, 0) for k in now} == {
+        "delta_zigzag": 1, "uvarint_pack64": 1}
 
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``repro_torch`` and nothing in
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
+``chip_smoke.py`` or ``chip_prime_probe.py`` imports ``jax`` or the JAX package ``repro``, and
 importing the port's Recorder, its baselines and workloads, its read
 side, its trace service, its models, serving engine, training side,
 configs, sharding layer and dry run leaves ``jax`` unloaded.  The port's
@@ -17,7 +17,8 @@ _PORT = os.path.join(_REPO, "src", "repro_torch")
 
 
 def _sources():
-    paths = [os.path.join(_REPO, "chip_smoke.py")] + [
+    paths = [os.path.join(_REPO, f) for f in ("chip_smoke.py",
+                                               "chip_prime_probe.py")] + [
         os.path.join(_REPO, "examples", f"torch_{name}.py")
         for name in ("constant_trace_scaling", "quickstart",
                      "workflow_analysis")]
@@ -73,7 +74,8 @@ def test_recorder_import_leaves_jax_unloaded():
             "repro_torch.launch.train, repro_torch.core.baselines, "
             "repro_torch.workloads, repro_torch.launch.mesh, "
             "repro_torch.launch.shapes, repro_torch.launch.step_analysis, "
-            "repro_torch.launch.dryrun, repro_torch.optim.compress; "
+            "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
+            "repro_torch.optim.compress; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(_REPO, "src"))

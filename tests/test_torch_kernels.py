@@ -338,3 +338,33 @@ def test_launch_counts_survive_concurrent_threads():
         sys.setswitchinterval(old)
     assert _build.launch_counts() == {"k": n_threads * per_thread}
     _build.reset_launches()
+
+
+def test_thread_launch_counts_are_each_threads_own():
+    """A thread's tally holds its own launches alone, whatever the threads
+    beside it launch, and a reset of the counts leaves it running."""
+    import threading
+    start = threading.Barrier(8)
+    seen = {}
+
+    def body(i):
+        before = _build.thread_launch_counts().get("k", 0)
+        start.wait()
+        for _ in range(100 * (i + 1)):
+            _build.count_launch("k")
+        seen[i] = _build.thread_launch_counts().get("k", 0) - before
+
+    mine = _build.thread_launch_counts()
+    _build.reset_launches()
+    threads = [threading.Thread(target=body, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert seen == {i: 100 * (i + 1) for i in range(8)}
+    assert _build.launch_counts() == {"k": 100 * 36}
+    assert _build.thread_launch_counts() == mine
+    _build.count_launch("k")
+    _build.reset_launches()
+    assert _build.thread_launch_counts().get("k", 0) == mine.get("k", 0) + 1
+    _build.reset_launches()
