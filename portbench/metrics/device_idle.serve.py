@@ -1,0 +1,13 @@
+"""Share of the profiled prefill batches in which no operation ran on the
+card."""
+
+from portbench.roofline import shares
+
+LAYER = "device"
+UNIT = "%"
+MOVES = "serve_tokens_per_s"
+SOURCE = "device_trace"
+
+
+def read(ctx):
+    return shares.idle(ctx)

@@ -1,0 +1,13 @@
+"""Milliseconds of every Recorder.flush() the prefill window calls, summed:
+the harness's span around each call."""
+
+from portbench.roofline import shares
+
+LAYER = "streaming flush"
+UNIT = "ms"
+MOVES = "serve_tokens_per_s"
+SOURCE = "host_clock"
+
+
+def read(ctx):
+    return shares.span_ms(ctx, "flush")
