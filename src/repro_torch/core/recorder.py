@@ -44,6 +44,7 @@ from .sequitur import Sequitur, concat_grammars
 from .specs import DATA_FUNCS, REGISTRY, FunctionRegistry, Role
 from .timestamps import TimestampBuffer, compress_timestamps
 from . import streaming, trace_format
+from .. import spans
 
 
 def _env_int(name: str, minimum: int = 1) -> Optional[int]:
@@ -319,9 +320,13 @@ class Recorder:
 
     def record(self, func_id: int, raw_args: tuple, ret: Any, depth: int,
                t0: int, t1: int) -> None:
+        start = time.perf_counter_ns() if spans.enabled else 0
         spec = self.registry.spec(func_id)
         with self._lock:
             self._record_locked(spec, func_id, raw_args, ret, depth, t0, t1)
+        if start:
+            spans.count("recorder.record_calls")
+            spans.count("recorder.record_ns", time.perf_counter_ns() - start)
         if self._tls.depth == 0:
             # auto-flush only from top-level calls (a flush inside a layered
             # call would split parent and child records across epochs)
@@ -561,14 +566,16 @@ class Recorder:
 
     def _flush_impl(self, comm: Comm, trace_dir: str
                     ) -> Optional[Dict[str, Any]]:
-        self._maybe_resume(comm, trace_dir)
-        if self.config.async_flush:
-            return self._flush_async_locked(comm, trace_dir)
-        return self._flush_locked(comm, trace_dir)
+        with spans.span("recorder.flush", epoch=self.epoch):
+            self._maybe_resume(comm, trace_dir)
+            if self.config.async_flush:
+                return self._flush_async_locked(comm, trace_dir)
+            return self._flush_locked(comm, trace_dir)
 
     def _flush_locked(self, comm: Comm, trace_dir: str
                       ) -> Optional[Dict[str, Any]]:
-        entries, cfg, ticks, wraps = self.take_epoch()
+        with spans.span("flush.snapshot"):
+            entries, cfg, ticks, wraps = self.take_epoch()
         epoch = self.epoch
         self.epoch += 1
         self._last_flush_t = time.perf_counter()
@@ -586,16 +593,25 @@ class Recorder:
         if busy:
             self.epochs_coalesced += 1
             return None
-        entries, cfg, ticks, wraps = self.take_epoch()
+        with spans.span("flush.snapshot"):
+            entries, cfg, ticks, wraps = self.take_epoch()
         epoch = self.epoch
         self.epoch += 1
         self._last_flush_t = time.perf_counter()
         if self._bg_comm is None:
             self._bg_comm = comm.dup("recorder-flush")
         self._inflight = self._pool().submit(
-            self._commit_epoch, self._bg_comm, trace_dir, entries, cfg,
-            ticks, wraps, epoch)
+            self._commit_in_background, self._bg_comm, trace_dir, entries,
+            cfg, ticks, wraps, epoch)
         return None
+
+    def _commit_in_background(self, comm: Comm, trace_dir: str,
+                              entries: List[bytes], cfg: bytes, ticks: Any,
+                              wraps: int, epoch: int
+                              ) -> Optional[Dict[str, Any]]:
+        with spans.span("flush.commit", epoch=epoch):
+            return self._commit_epoch(comm, trace_dir, entries, cfg, ticks,
+                                      wraps, epoch)
 
     def _degraded(self, comm: Comm) -> bool:
         """True when flushes run the timed, failure-tolerant protocol:
@@ -839,73 +855,94 @@ class Recorder:
             raise RuntimeError("recorder already finalized")
         comm = comm or self._comm or SoloComm()
         trace_dir = trace_dir or self.config.trace_dir
-        if self._is_streaming():
-            if not trace_dir:
-                raise ValueError("streaming finalize requires a trace_dir")
-            # drain any in-flight background commit FIRST (its failure must
-            # surface here, not vanish), then flush the tail synchronously;
-            # the tail flush is skippable only when provably empty AND the
-            # decision needs no agreement (solo comm) -- multi-rank flushes
-            # are collective, so every rank must make the same call.  The
-            # _finalized flip happens under the flush lock so a racing
-            # auto-flush can never commit an epoch after the tail (it
-            # re-checks the flag under the same lock).  Safe to wait on the
-            # future while holding the lock: the background commit never
-            # takes it.
-            with self._flush_lock:
+        with spans.span("recorder.finalize"):
+            if self._is_streaming():
+                return self._finalize_streaming(comm, trace_dir)
+            return self._finalize_one_shot(comm, trace_dir)
+
+    def _finalize_streaming(self, comm: Comm, trace_dir: Optional[str]
+                            ) -> Optional[RecorderStats]:
+        if not trace_dir:
+            raise ValueError("streaming finalize requires a trace_dir")
+        # drain any in-flight background commit FIRST (its failure must
+        # surface here, not vanish), then flush the tail synchronously; the
+        # tail flush is skippable only when provably empty AND the decision
+        # needs no agreement (solo comm) -- multi-rank flushes are
+        # collective, so every rank must make the same call.  The
+        # _finalized flip happens under the flush lock so a racing
+        # auto-flush can never commit an epoch after the tail (it re-checks
+        # the flag under the same lock).  Safe to wait on the future while
+        # holding the lock: the background commit never takes it.
+        with self._flush_lock:
+            with spans.span("finalize.drain"):
                 self._drain_locked()
-                self._maybe_resume(comm, trace_dir)
-                if (comm.size > 1 or self.epoch == 0
-                        or self.n_records > self._records_at_flush):
+            self._maybe_resume(comm, trace_dir)
+            if (comm.size > 1 or self.epoch == 0
+                    or self.n_records > self._records_at_flush):
+                with spans.span("finalize.tail_flush"):
                     self._flush_locked(comm, trace_dir)
-                self._finalized = True
-            if self._flush_pool is not None:
-                self._flush_pool.shutdown(wait=True)
-                self._flush_pool = None
-            if comm.rank != 0:
+            self._finalized = True
+        if self._flush_pool is not None:
+            self._flush_pool.shutdown(wait=True)
+            self._flush_pool = None
+        if comm.rank != 0:
+            with spans.span("finalize.barrier"):
                 self._finalize_sync(comm)
-                return None
-            if self.config.max_epochs_retained is None:
+            return None
+        if self.config.max_epochs_retained is None:
+            with spans.span("finalize.merged"):
                 streaming.write_merged_trace(
                     trace_dir, self._cum, registry=self.registry,
                     inter_patterns=self.config.inter_patterns,
                     meta_extra=self._metadata(comm.size))
-            stats = self._stream_totals
-            stats.n_records = self.n_records
-            stats.n_skipped = self.n_skipped
+        stats = self._stream_totals
+        stats.n_records = self.n_records
+        stats.n_skipped = self.n_skipped
+        with spans.span("finalize.barrier"):
             self._finalize_sync(comm)
-            return stats
+        return stats
+
+    def _finalize_one_shot(self, comm: Comm, trace_dir: Optional[str]
+                           ) -> Optional[RecorderStats]:
         self._finalized = True
         if self.config.finalize_topology not in ("tree", "flat"):
             raise ValueError(
                 f"finalize_topology must be 'tree' or 'flat', got "
                 f"{self.config.finalize_topology!r}")
-        entries, cfg, ts = self.local_state()
+        with spans.span("finalize.local_state"):
+            entries, cfg, ts = self.local_state()
         if self.config.finalize_topology == "tree":
-            leaf = make_rank_state(comm.rank, entries, cfg, self.registry)
-            blob = comm.reduce_tree(serialize_rank_state(leaf),
-                                    merge_serialized_states)
-            ts_gathered = comm.gather_tree(ts)
+            with spans.span("finalize.reduce"):
+                leaf = make_rank_state(comm.rank, entries, cfg,
+                                       self.registry)
+                blob = comm.reduce_tree(serialize_rank_state(leaf),
+                                        merge_serialized_states)
+                ts_gathered = comm.gather_tree(ts)
             if comm.rank != 0:
-                comm.barrier()
+                with spans.span("finalize.barrier"):
+                    comm.barrier()
                 return None
             rank_ts = ts_gathered
-            merge, cfgs = materialize_state(
-                deserialize_rank_state(blob),
-                inter_patterns=self.config.inter_patterns)
+            with spans.span("finalize.merge"):
+                merge, cfgs = materialize_state(
+                    deserialize_rank_state(blob),
+                    inter_patterns=self.config.inter_patterns)
         else:
-            gathered = comm.gather((entries, cfg, ts))
+            with spans.span("finalize.reduce"):
+                gathered = comm.gather((entries, cfg, ts))
             if comm.rank != 0:
-                comm.barrier()
+                with spans.span("finalize.barrier"):
+                    comm.barrier()
                 return None
             rank_csts = [g[0] for g in gathered]
             rank_cfgs = [g[1] for g in gathered]
             rank_ts = [g[2] for g in gathered]
-            merge, cfgs = finalize_ranks(
-                rank_csts, rank_cfgs, self.registry,
-                inter_patterns=self.config.inter_patterns,
-                fit_mode=("cuda" if self.config.encode_backend == "cuda"
-                          else "vectorized"))
+            with spans.span("finalize.merge"):
+                merge, cfgs = finalize_ranks(
+                    rank_csts, rank_cfgs, self.registry,
+                    inter_patterns=self.config.inter_patterns,
+                    fit_mode=("cuda" if self.config.encode_backend == "cuda"
+                              else "vectorized"))
         stats = RecorderStats(
             n_records=self.n_records,
             n_skipped=self.n_skipped,
@@ -915,16 +952,18 @@ class Recorder:
             ts_bytes=sum(len(t) for t in rank_ts),
         )
         if trace_dir:
-            trace_format.write_trace(
-                trace_dir,
-                registry=self.registry,
-                merged_cst=merge.merged_entries,
-                unique_cfgs=cfgs.unique_cfgs,
-                cfg_index=cfgs.cfg_index,
-                rank_timestamps=rank_ts,
-                meta_extra=self._metadata(comm.size),
-            )
-        comm.barrier()
+            with spans.span("finalize.write"):
+                trace_format.write_trace(
+                    trace_dir,
+                    registry=self.registry,
+                    merged_cst=merge.merged_entries,
+                    unique_cfgs=cfgs.unique_cfgs,
+                    cfg_index=cfgs.cfg_index,
+                    rank_timestamps=rank_ts,
+                    meta_extra=self._metadata(comm.size),
+                )
+        with spans.span("finalize.barrier"):
+            comm.barrier()
         return stats
 
     def _finalize_sync(self, comm: Comm) -> None:

@@ -56,6 +56,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from . import faults, trace_format
+from .. import spans
 from .comm import CommTimeout
 from .interprocess import (CfgResult, MergeResult, RankState,
                            deserialize_rank_state, epoch_occ_counts,
@@ -332,27 +333,32 @@ def run_flush(comm, *, entries: List[bytes], cfg: bytes, ticks: np.ndarray,
     reduced delta into ``cum``, commits the segment and returns its
     manifest entry (other ranks return None).  Collective: all ranks must
     call it in the same order."""
-    leaf = make_rank_state(comm.rank, entries, cfg, registry)
-    blob = comm.reduce_tree(serialize_rank_state(leaf),
-                            merge_serialized_states)
-    blocks = compress_timestamps_blocked(ticks, ts_block_records,
-                                         backend=encode_backend) \
-        if len(ticks) else []
-    packed = comm.gather_tree(pack_ts_blocks(blocks))
+    with spans.span("flush.reduce"):
+        leaf = make_rank_state(comm.rank, entries, cfg, registry)
+        blob = comm.reduce_tree(serialize_rank_state(leaf),
+                                merge_serialized_states)
+        delta = deserialize_rank_state(blob) if comm.rank == 0 else None
+    with spans.span("flush.encode_ts"):
+        blocks = compress_timestamps_blocked(ticks, ts_block_records,
+                                             backend=encode_backend) \
+            if len(ticks) else []
+        packed = comm.gather_tree(pack_ts_blocks(blocks))
     if comm.rank != 0:
-        comm.barrier()
+        with spans.span("flush.barrier"):
+            comm.barrier()
         return None
-    delta = deserialize_rank_state(blob)
-    # records per unique stream from grammar expansion weights (O(|grammar|)
-    # each), summed over ranks by stream multiplicity
-    per_stream = [sum(terminal_counts(parse_grammar(cfg_e)).values())
-                  for cfg_e, _rows in delta.streams]
-    n_records = sum(per_stream[si] for si in delta.stream_of)
-    merge, cfgs = materialize_state(delta, inter_patterns=inter_patterns)
-    entry = write_epoch_segment(
-        trace_dir, epoch, registry=registry, merge=merge, cfgs=cfgs,
-        rank_ts_blocks=[unpack_ts_blocks(p) for p in packed],
-        state_blob=blob, n_records=n_records, meta_extra=meta_extra)
+    with spans.span("flush.materialize"):
+        # records per unique stream from grammar expansion weights
+        # (O(|grammar|) each), summed over ranks by stream multiplicity
+        per_stream = [sum(terminal_counts(parse_grammar(cfg_e)).values())
+                      for cfg_e, _rows in delta.streams]
+        n_records = sum(per_stream[si] for si in delta.stream_of)
+        merge, cfgs = materialize_state(delta, inter_patterns=inter_patterns)
+    with spans.span("flush.write"):
+        entry = write_epoch_segment(
+            trace_dir, epoch, registry=registry, merge=merge, cfgs=cfgs,
+            rank_ts_blocks=[unpack_ts_blocks(p) for p in packed],
+            state_blob=blob, n_records=n_records, meta_extra=meta_extra)
     # fold into the cumulative state only after the segment committed, so a
     # failed write never desyncs the in-memory state from the directory
     # (the epoch's records are lost either way -- they were snapshotted out
@@ -361,11 +367,13 @@ def run_flush(comm, *, entries: List[bytes], cfg: bytes, ticks: np.ndarray,
     # retention the cumulative state is never consumed (a merged trace
     # cannot cover pruned epochs), so skip the fold entirely: rank-0 memory
     # stays bounded by the ring, matching the live-monitoring use case.
-    if max_epochs_retained is None:
-        cum.append(delta)
-    else:
-        prune_epochs(trace_dir, max_epochs_retained)
-    comm.barrier()
+    with spans.span("flush.fold"):
+        if max_epochs_retained is None:
+            cum.append(delta)
+        else:
+            prune_epochs(trace_dir, max_epochs_retained)
+    with spans.span("flush.barrier"):
+        comm.barrier()
     return entry
 
 
@@ -435,12 +443,11 @@ def run_flush_degraded(comm, *, entries: List[bytes], cfg: bytes,
     other timed collective on ``comm``) in the same order; the message
     tags assume lockstep invocation counts.
     """
-    leaf_state = make_rank_state(comm.rank, entries, cfg, registry)
-    blocks = compress_timestamps_blocked(ticks, ts_block_records,
-                                         backend=encode_backend) \
-        if len(ticks) else []
-    leaf = ((comm.rank,), serialize_rank_state(leaf_state),
-            ((comm.rank, pack_ts_blocks(blocks)),))
+    with spans.span("flush.encode_ts"):
+        blocks = compress_timestamps_blocked(ticks, ts_block_records,
+                                             backend=encode_backend) \
+            if len(ticks) else []
+        ts_payload = pack_ts_blocks(blocks)
 
     def fold(a, b):
         return (a[0] + b[0], merge_serialized_states(a[1], b[1]),
@@ -449,11 +456,18 @@ def run_flush_degraded(comm, *, entries: List[bytes], cfg: bytes,
     def absent(lo, hi):
         return ((), _empty_block_blob(lo, hi - lo), ())
 
-    folded = comm.reduce_tree_partial(leaf, fold, absent, timeout_s)
+    # the timestamps ride the state's reduction tree here, so their
+    # gather is part of flush.reduce
+    with spans.span("flush.reduce"):
+        leaf_state = make_rank_state(comm.rank, entries, cfg, registry)
+        leaf = ((comm.rank,), serialize_rank_state(leaf_state),
+                ((comm.rank, ts_payload),))
+        folded = comm.reduce_tree_partial(leaf, fold, absent, timeout_s)
     if comm.rank != 0:
         patience = comm.verdict_patience(timeout_s)
         try:
-            ack = comm.bcast_p2p(None, patience)
+            with spans.span("flush.barrier"):
+                ack = comm.bcast_p2p(None, patience)
         except CommTimeout:
             return FlushOutcome(
                 ok=False, lost_local=True,
@@ -466,23 +480,28 @@ def run_flush_degraded(comm, *, entries: List[bytes], cfg: bytes,
     present, blob, ts_items = folded
     present = sorted(present)
     try:
-        delta = deserialize_rank_state(blob)
-        per_stream = [sum(terminal_counts(parse_grammar(cfg_e)).values())
-                      for cfg_e, _rows in delta.streams]
-        n_records = sum(per_stream[si] for si in delta.stream_of)
-        merge, cfgs = materialize_state(delta, inter_patterns=inter_patterns)
-        rank_blocks: List[List[TsBlock]] = [[] for _ in range(delta.n)]
-        for r, packed in ts_items:
-            rank_blocks[r - delta.base] = unpack_ts_blocks(packed)
-        entry = write_epoch_segment(
-            trace_dir, epoch, registry=registry, merge=merge, cfgs=cfgs,
-            rank_ts_blocks=rank_blocks, state_blob=blob,
-            n_records=n_records, meta_extra=meta_extra,
-            ranks_present=present)
-        if max_epochs_retained is None:
-            cum.append(delta)
-        else:
-            prune_epochs(trace_dir, max_epochs_retained)
+        with spans.span("flush.reduce"):
+            delta = deserialize_rank_state(blob)
+        with spans.span("flush.materialize"):
+            per_stream = [sum(terminal_counts(parse_grammar(cfg_e)).values())
+                          for cfg_e, _rows in delta.streams]
+            n_records = sum(per_stream[si] for si in delta.stream_of)
+            merge, cfgs = materialize_state(delta,
+                                            inter_patterns=inter_patterns)
+        with spans.span("flush.write"):
+            rank_blocks: List[List[TsBlock]] = [[] for _ in range(delta.n)]
+            for r, packed in ts_items:
+                rank_blocks[r - delta.base] = unpack_ts_blocks(packed)
+            entry = write_epoch_segment(
+                trace_dir, epoch, registry=registry, merge=merge, cfgs=cfgs,
+                rank_ts_blocks=rank_blocks, state_blob=blob,
+                n_records=n_records, meta_extra=meta_extra,
+                ranks_present=present)
+        with spans.span("flush.fold"):
+            if max_epochs_retained is None:
+                cum.append(delta)
+            else:
+                prune_epochs(trace_dir, max_epochs_retained)
     except Exception as e:
         # commit failed locally: tell the survivors (one fan-out either
         # way, preserving the lockstep tag count), then report the failure
@@ -492,7 +511,8 @@ def run_flush_degraded(comm, *, entries: List[bytes], cfg: bytes,
         except Exception:  # pragma: no cover - fan-out itself failing
             pass
         return FlushOutcome(ok=False, error=str(e), exc=e, lost_local=True)
-    comm.bcast_p2p(("ok", present), timeout_s)
+    with spans.span("flush.barrier"):
+        comm.bcast_p2p(("ok", present), timeout_s)
     return FlushOutcome(ok=True, entry=entry, ranks_present=present)
 
 

@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import spans
 from ..distributed.sharding import (P, is_dtensor, map_leaves, mesh_context,
                                     mesh_shape, to_placements,
                                     tree_param_specs)
@@ -306,10 +307,12 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
 
     def grads_of(params, batch) -> Tuple[torch.Tensor, Dict, List]:
         leaves = list(flat_params(params).values())
-        loss, metrics = model.loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
+        with spans.span("train.forward"):
+            loss, metrics = model.loss_fn(params, batch)
+        with spans.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
 
@@ -323,7 +326,8 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
     def train_step(state: Dict[str, Any], batch: Dict
                    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         with mesh_context(mesh if sharded else None):
-            params = cast_and_gather(state["master"])
+            with spans.span("train.cast"):
+                params = cast_and_gather(state["master"])
             if accum_steps == 1:
                 loss, metrics, grads = grads_of(params, batch)
             else:
@@ -340,10 +344,11 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
                 loss = torch.stack(ls).mean()
                 metrics = {k: torch.stack([m[k] for m in ms]).mean()
                            for k in ms[0]}
-            grads = to_zero(grads)
-            it = iter(grads)
-            grad_tree = tree_map(lambda p, _: next(it), params)
-            new_state, om = adamw_update(ocfg, state, grad_tree)
+            with spans.span("train.optimizer"):
+                grads = to_zero(grads)
+                it = iter(grads)
+                grad_tree = tree_map(lambda p, _: next(it), params)
+                new_state, om = adamw_update(ocfg, state, grad_tree)
         return new_state, dict(metrics, loss=loss, **om)
 
     return train_step

@@ -8,12 +8,12 @@ applied to the serving loop).
 
 from __future__ import annotations
 
-import time
 from typing import Dict
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..core.apis import framework as frame
 from ..models import get_model
 from ..models.config import ModelConfig
@@ -23,7 +23,10 @@ from ..models.lm import layer_kinds, prompt_len
 class ServeEngine:
     """Serves ``params`` (the port's parameters, on ``device``).  After
     each :meth:`generate`, ``stats`` holds the host-clock seconds of the
-    prefill (with the first token on the host) and of the decode steps."""
+    prefill (with the first token on the host) and of the decode steps,
+    read by the call's ``serve.*`` spans (``repro_torch.spans``), whose
+    clock reads they share; ``batches`` counts the calls, and is the
+    ``batch`` of their ``serve.generate`` spans."""
 
     def __init__(self, cfg: ModelConfig, params, max_seq: int = 4096,
                  device="cuda"):
@@ -32,6 +35,7 @@ class ServeEngine:
         self.params = params
         self.max_seq = max_seq
         self.stats: Dict[str, float] = {}
+        self.batches = 0
 
     @torch.inference_mode()
     def generate(self, batch: Dict, n_new: int) -> np.ndarray:
@@ -64,19 +68,26 @@ class ServeEngine:
                 f"{self.cfg.name}: {batch['frames'].shape[1]} encoder frames "
                 f"do not fit the cross-attention cache of max_seq "
                 f"{self.max_seq} positions")
-        t0 = time.perf_counter()
-        logits, pf_cache = self.model.prefill(self.params, batch)
-        cache = _seat(self.model.init_cache(B, self.max_seq), pf_cache)
-        V = self.cfg.vocab_size
-        tok = torch.argmax(logits[:, :V], dim=-1).to(torch.int32)[:, None]
-        out = [tok.cpu().numpy()]
-        t1 = time.perf_counter()
-        for i in range(n_new - 1):
-            frame.serve_step(i)
-            tok, cache = self.model.decode_step(self.params, cache, tok)
-            out.append(tok.cpu().numpy())
-        self.stats = {"prefill_s": t1 - t0,
-                      "decode_s": time.perf_counter() - t1,
+        with spans.span("serve.generate", batch=self.batches):
+            with spans.timed("serve.prefill") as prefill:
+                logits, pf_cache = self.model.prefill(self.params, batch)
+            with spans.span("serve.seat"):
+                cache = _seat(self.model.init_cache(B, self.max_seq),
+                              pf_cache)
+            with spans.timed("serve.first_token") as first:
+                V = self.cfg.vocab_size
+                tok = torch.argmax(logits[:, :V],
+                                   dim=-1).to(torch.int32)[:, None]
+                out = [tok.cpu().numpy()]
+            with spans.timed("serve.decode") as decode:
+                for i in range(n_new - 1):
+                    frame.serve_step(i)
+                    tok, cache = self.model.decode_step(self.params, cache,
+                                                        tok)
+                    out.append(tok.cpu().numpy())
+        self.batches += 1
+        self.stats = {"prefill_s": (first.end_ns - prefill.start_ns) * 1e-9,
+                      "decode_s": decode.seconds,
                       "decode_steps": n_new - 1}
         return np.concatenate(out, axis=1)
 

@@ -20,7 +20,8 @@ either package restores the other's.  A fresh state comes from a
 which draws other numbers than the JAX package's ``PRNGKey``: to start
 both packages from one state, let the port auto-resume from a checkpoint
 the JAX package wrote.  Step times are host-clock seconds after the step's
-metrics reached the host (which waits for the device).
+metrics reached the host (which waits for the device), read by the step's
+``train.step`` span (``repro_torch.spans``), whose clock reads they share.
 """
 
 from __future__ import annotations
@@ -28,12 +29,12 @@ from __future__ import annotations
 import math
 import os
 import tempfile
-import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from .. import spans
 from ..checkpoint import CheckpointEngine
 from ..core.apis import framework as frame
 from ..launch.steps import make_train_step
@@ -139,12 +140,14 @@ class Trainer:
     # -- loop -------------------------------------------------------------------
 
     def _run_step(self, step: int) -> Dict[str, float]:
-        batch = self.data(step)
-        frame.fetch_batch(step, sum(v.nbytes for v in batch.values()))
+        with spans.span("train.data"):
+            batch = self.data(step)
+            frame.fetch_batch(step, sum(v.nbytes for v in batch.values()))
         if self.fault_hook is not None:
             self.fault_hook(step)
         self.state, metrics = self._step_fn(self.state, batch)
-        return {k: float(v) for k, v in metrics.items()}
+        with spans.span("train.readback"):
+            return {k: float(v) for k, v in metrics.items()}
 
     def run(self) -> Dict[str, Any]:
         if self.state is None:
@@ -153,9 +156,9 @@ class Trainer:
         retries = 0
         while step < self.tcfg.num_steps:
             frame.step(step)
-            t0 = time.perf_counter()
             try:
-                metrics = self._run_step(step)
+                with spans.timed("train.step", step=step) as timer:
+                    metrics = self._run_step(step)
             except Exception:
                 retries += 1
                 if retries <= self.tcfg.retry_max:
@@ -168,7 +171,7 @@ class Trainer:
                 retries = 0
                 continue
             retries = 0
-            dt = time.perf_counter() - t0
+            dt = timer.seconds
             self.straggler.update(step, dt)
             metrics["step_time_s"] = dt
             metrics["step"] = step

@@ -616,16 +616,17 @@ def test_straggler_detector():
 
 def test_trainer_flags_a_slow_step(tmp_path, monkeypatch):
     """The loop's step times come from a fake clock: 0.1 s a step with a
-    little spread, and 5 s more at step 11."""
-    from repro_torch.train import loop
+    little spread, and 5 s more at step 11.  The step's ``train.step``
+    span reads the clock for the loop."""
+    from repro_torch import spans
 
     class Clock:
         t = 0.0
 
-        def perf_counter(self):
-            return self.t
+        def perf_counter_ns(self):
+            return round(self.t * 1e9)
     clock = Clock()
-    monkeypatch.setattr(loop, "time", clock)
+    monkeypatch.setattr(spans, "time", clock)
 
     def slow(step):
         clock.t += 0.1 + 0.001 * (step % 3) + (5.0 if step == 11 else 0.0)
