@@ -29,7 +29,11 @@ csrc`` and then runs, in order:
                 (forward on the kernel, backward by recomputing the plain
                 version) against plain autograd: every input gradient
                 equal bit for bit, f32 and bf16, at prime lengths, hymba's
-                windowed attention and the train phase's shapes;
+                windowed attention and the train phase's shapes; and the
+                SSD scan's backward kernel ``ssd_scan_bwd`` against the
+                plain version's autograd (each gradient's largest error
+                within SSD_BWD_TOL of its largest value), two calls
+                bit-identical, one launch a call;
 3. IOR       -- the write path: 32 ranks x 16,384 lseek+write iterations
                 (paper Listing 3, 1 MiB transfers to one shared file) as
                 ThreadComm ranks, finalized tree and flat on the ``cuda``
@@ -151,14 +155,16 @@ csrc`` and then runs, in order:
                 checkpoints (about 5 GB, keep 1), a new one auto-resumes
                 with a bit-identical state and takes 2 more; ``ssd_scan``
                 and ``rmsnorm`` counted step by step (48 each a forward,
-                twice that under block remat), the finalize's
+                twice that under block remat; ``ssd_scan_bwd`` 48 a
+                backward), the finalize's
                 ``delta_zigzag`` and ``uvarint_pack64``, and the trace
                 read back (6 ``step`` records, the checkpoint's
                 ``shard_write_at`` and ``shard_read_at`` calls); one
-                profiled step; every leaf's f32 gradient within relative
-                L2 1e-3 of the plain path's at full width and 4 layers
-                (2e-2 at 48, where f32 rounding alone moves some leaves
-                by 7e-3); then
+                profiled step; every leaf's f32 gradient (the SSD's
+                forward and backward kernels) within relative L2 1e-3 of
+                the plain path's (no SSD kernel in either pass) at full
+                width and 4 layers (2e-2 at 48, where f32 rounding alone
+                moves some leaves by 7e-3); then
                 qwen1.5-0.5b (all 24 layers, bf16) for flash attention's
                 gradient: the same guard and loss check and 2 steps; then
                 deepseek-moe-16b at full width, 3 layers (one dense, two
@@ -354,11 +360,18 @@ SERVE_SPECS = (
 )
 SERVE_ARCH = SERVE_SPECS[0].arch   # rows 8 and 9 are measured at its shapes
 SSD_ARCH = SERVE_SPECS[1].arch     # row 10 at mamba2's
-MODEL_KERNELS = ("flash_attention", "rmsnorm", "ssd_scan")
+MODEL_KERNELS = ("flash_attention", "rmsnorm", "ssd_scan", "ssd_scan_bwd")
 # tolerances of tests/test_kernels.py for kernel against plain version
 # (the SSD scan is held to 5 times these there, and here)
 FLOAT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL_SCALE = 5
+# the SSD backward kernel against the plain version's autograd: each
+# gradient's largest error as a share of its largest value.  dx, db and dc
+# carry the inputs' dtype: in bf16 the readings are 0.0007-0.0032 (a bf16
+# ulp is 0.0039 of a value), so 1e-2; the f32 gradients, and ddt and dda
+# (f32 whatever the inputs' dtype), read 9e-7 to 5.3e-6, so
+# SSD_TOL_SCALE x FLOAT_TOL[f32] = 1e-4 (H100 80GB HBM3 at 700 W, PERF.md)
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 def log(msg: str) -> None:
@@ -802,6 +815,7 @@ def model_kernels(k, serve_calls: dict) -> dict:
                 f"error {err:.3g}")
     torch.cuda.empty_cache()
     function_grad_checks(k)
+    ssd_backward_checks(k)
     torch.cuda.empty_cache()
     return ssd_kernel_checks(k)
 
@@ -931,6 +945,58 @@ def function_grad_checks(k) -> None:
                     sorted(worst.items()))
         + "), every input gradient finite and equal to plain autograd's, "
         "bit for bit")
+
+
+def ssd_backward_checks(k) -> None:
+    """The SSD chunk scan's backward kernel (``ssd_scan_bwd``) against the
+    plain version's autograd at GRAD_SSD, f32 and bf16, with and without a
+    final state's gradient: each gradient's largest error within
+    SSD_BWD_TOL of its largest value (dx, db, dc in the inputs' dtype, ddt
+    and dda f32); a second call bit-identical; one counted launch a call,
+    also through the model's Function."""
+    names = ("dx", "db", "dc", "ddt", "dda")
+    worst = collections.defaultdict(float)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in GRAD_SSD:
+            args = ssd_inputs(*shape, dtype, 63)
+            B, _, _, nh, hd, ns = shape
+            dy = randn(tuple(args[0].shape), 64, dtype)
+            for dh in (None, randn((B, nh, ns, hd), 65, torch.float32)):
+                k.ssd._build.reset_launches()
+                got = k.ssd.ssd_scan_bwd(*args, dy, dh)
+                again = k.ssd.ssd_scan_bwd(*args, dy, dh)
+                torch.cuda.synchronize()
+                require(k.ssd._build.launch_counts() == {"ssd_scan_bwd": 2},
+                        f"ssd_scan_bwd {shape}: launches "
+                        f"{k.ssd._build.launch_counts()}")
+                want = k.ssd._plain_grads(args, (True,) * 5, dy, dh)
+                for name, g, a, w in zip(names, got, again, want):
+                    require(torch.equal(g, a), f"ssd_scan_bwd {shape} "
+                            f"{dtype}: {name} differs between two calls")
+                    require(g.dtype == w.dtype and bool(
+                        torch.isfinite(g).all()), f"ssd_scan_bwd {shape} "
+                        f"{dtype}: {name} {g.dtype} or not finite")
+                    err = float((g.double() - w.double()).abs().max()
+                                / w.double().abs().max().clamp_min(1e-30))
+                    tol = SSD_BWD_TOL[g.dtype]
+                    require(err <= tol, f"ssd_scan_bwd {shape} {dtype} "
+                            f"dh={dh is not None}: {name} off the plain "
+                            f"version's by {err:.3g} of its largest value, "
+                            f"over {tol}")
+                    key = (name, str(dtype)[6:])
+                    worst[key] = max(worst[key], err)
+        xs = [t.detach().clone().requires_grad_(True) for t in args]
+        k.ssd._build.reset_launches()
+        y, _ = k.ssd.ssd_scan_with_grad(k.ssd_ref.ssd_scan_chunked_ref, *xs)
+        torch.autograd.grad(y, xs, dy)
+        require(k.ssd._build.launch_counts() == {"ssd_scan_bwd": 1},
+                f"the model's Function launched "
+                f"{k.ssd._build.launch_counts()} in a backward")
+    log(f"ssd_scan_bwd at {GRAD_SSD}, f32 and bf16, with and without a "
+        f"state gradient: two calls bit-identical, one launch a call; the "
+        f"largest error as a share of the largest value: "
+        + ", ".join(f"{n} {d} {e:.3g}" for (n, d), e in
+                    sorted(worst.items())))
 
 
 def ssd_inputs(B, nc, Q, nh, hd, ns, dtype, seed):
@@ -2005,6 +2071,7 @@ def serve_launches(cfg, n_new: int) -> dict:
     return {"flash_attention": (cfg.n_layers + cfg.n_encoder_layers)
             if flash else 0,
             "ssd_scan": cfg.n_layers if ssd else 0,
+            "ssd_scan_bwd": 0,
             "rmsnorm": cfg.n_layers * n_new * (2 * cfg.qk_norm + ssd
                                                + cfg.mla)}
 
@@ -2511,11 +2578,14 @@ F32_GRAD_FULL_RTOL = 2e-2
 def train_launches(cfg, passes: int) -> dict:
     """Model-kernel launches of ``passes`` forward and backward passes:
     each forward launches what a prefill does (``serve_launches``); block
-    remat runs every block's forward again in the backward, and the
-    backward recomputes the plain versions, which launch nothing."""
+    remat runs every block's forward again in the backward; the backward
+    launches ``ssd_scan_bwd`` once per SSD layer and recomputes the plain
+    versions of the other kernels, which launch nothing."""
     remat = 2 if cfg.remat == "block" else 1
-    return {k: v * passes * remat
-            for k, v in serve_launches(cfg, 1).items()}
+    out = {k: v * passes * remat for k, v in serve_launches(cfg, 1).items()}
+    out["ssd_scan_bwd"] = passes * (cfg.n_layers if cfg.family == "ssm"
+                                    or cfg.hybrid else 0)
+    return out
 
 
 def train_data(s, cfg):
@@ -2533,6 +2603,22 @@ def loss_and_grads(s, cfg, params, batch) -> tuple:
     grads = torch.autograd.grad(loss, list(flat.values()))
     torch.cuda.synchronize()
     return loss.detach(), dict(zip(flat, grads))
+
+
+@contextlib.contextmanager
+def plain_ssd_backward(s):
+    """The SSD chunk scan's gradient by the plain version's autograd,
+    recomputed, in place of its backward kernel (``ssd_scan_bwd``), which
+    ``ssd_scan_with_grad`` runs on either ``ssm_impl``: inside, a plain
+    path (TRAIN_PLAIN) is plain end to end."""
+    ssd = s.k.ssd
+    kernel = ssd.ssd_scan_bwd
+    ssd.ssd_scan_bwd = lambda *a: ssd._plain_grads(a[:5], (True,) * 5,
+                                                   *a[5:])
+    try:
+        yield
+    finally:
+        ssd.ssd_scan_bwd = kernel
 
 
 def kernel_path_grads(s, cfg, state, batch) -> dict:
@@ -2573,11 +2659,14 @@ def kernel_path_grads(s, cfg, state, batch) -> dict:
             "leaves": len(grads), "launches": launches}
 
 
-def backward_ms(k, kernel, plain, inputs) -> float:
+def backward_ms(k, kernel, plain, inputs, apply=None) -> float:
     """CUDA-event ms of one backward through a kernel's autograd Function
-    (the plain recompute and its gradients), the forward taken once."""
+    (the plain recompute and its gradients, or, with ``apply`` the SSD
+    scan's ``ssd_scan_with_grad``, its backward kernel), the forward taken
+    once."""
     xs = [t.detach().clone().requires_grad_(True) for t in inputs]
-    out = k.grad.apply(kernel, plain, *xs)
+    out = apply(kernel, *xs) if apply is not None \
+        else k.grad.apply(kernel, plain, *xs)
     y = out[0] if isinstance(out, tuple) else out
     go = torch.ones_like(y)
     return cuda_ms(lambda: torch.autograd.grad(y, xs, go,
@@ -2741,23 +2830,29 @@ def phase_train(s) -> dict:
                         in ((F32_GRAD_LAYERS, GRAD_F32_RTOL),
                             (cfg.n_layers, F32_GRAD_FULL_RTOL))]
 
-    # what a step spends in the plain recomputes that stand in for the
-    # kernels' backward: one backward per layer at the step's shapes
+    # one backward per layer at the step's shapes: the SSD scan's by its
+    # kernel and by the plain recompute, flash's by the plain recompute
     ssd_shape = (TRAIN_BATCH, TRAIN_SEQ // cfg.ssm_chunk, cfg.ssm_chunk,
                  cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
     res["ssd_backward_ms"] = backward_ms(
         s.k, functools.partial(s.k.ssd.ssd_scan, return_state=True),
         s.k.ssd_ref.ssd_scan_chunked_ref,
         ssd_inputs(*ssd_shape, torch.bfloat16, 71))
+    res["ssd_backward_kernel_ms"] = backward_ms(
+        s.k, s.k.ssd.ssd_scan_op, s.k.ssd_ref.ssd_scan_chunked_ref,
+        ssd_inputs(*ssd_shape, torch.bfloat16, 71),
+        apply=s.k.ssd.ssd_scan_with_grad)
     res["dense"] = dense_train(s)
     res["moe"] = moe_train(s)
     res["encdec"] = encdec_train(s)
     res["flash_backward_ms"] = backward_ms(
         s.k, s.k.fa.flash_attention, s.k.fa_ref.flash_attention_ref,
         res["dense"].pop("qkv"))
-    log(f"train: backward by plain recompute, bf16, per layer call: "
-        f"ssd_scan {ssd_shape} {res['ssd_backward_ms']:.3f} ms (x "
-        f"{cfg.n_layers} a step), flash_attention at qwen1.5-0.5b's shape "
+    log(f"train: backward, bf16, per layer call: ssd_scan {ssd_shape} by "
+        f"its kernel {res['ssd_backward_kernel_ms']:.3f} ms (x "
+        f"{cfg.n_layers} a step), by plain recompute "
+        f"{res['ssd_backward_ms']:.3f} ms; by plain recompute: "
+        f"flash_attention at qwen1.5-0.5b's shape "
         f"{res['flash_backward_ms']:.3f} ms (x "
         f"{res['dense']['layers']} a step)")
     log(f"train numbers on {s.smi}: " + json.dumps(
@@ -2767,7 +2862,9 @@ def phase_train(s) -> dict:
 
 def f32_grad_check(s, cfg, layers: int, rtol: float, batch) -> dict:
     """``cfg`` cut to ``layers`` layers in f32: every leaf's gradient on
-    the kernel path within relative L2 ``rtol`` of the plain path's and
+    the kernel path (the SSD's forward and backward kernels, one
+    ``ssd_scan_bwd`` a layer) within relative L2 ``rtol`` of the plain
+    path's (no SSD kernel, the backward by ``plain_ssd_backward``) and
     non-zero; the plain path's own spread under a relative 1e-7
     perturbation of the weights is measured beside it."""
     dev = torch.device("cuda")
@@ -2784,9 +2881,23 @@ def f32_grad_check(s, cfg, layers: int, rtol: float, batch) -> dict:
 
     def rel(a, b):
         return {n: float((a[n] - b[n]).norm() / b[n].norm()) for n in b}
+    def plain_grads(p):
+        with plain_ssd_backward(s):
+            s.build.reset_launches()
+            _, g = loss_and_grads(s, c32.replace(**TRAIN_PLAIN), p, batch)
+            ssd = {n: s.build.launch_counts().get(n, 0)
+                   for n in ("ssd_scan", "ssd_scan_bwd")}
+        require(ssd == {"ssd_scan": 0, "ssd_scan_bwd": 0},
+                f"train {cfg.name} f32 x {layers}: the plain path launched "
+                f"{ssd}")
+        return g
     p32 = params(0.0)
+    s.build.reset_launches()
     _, gk = loss_and_grads(s, c32, p32, batch)
-    _, gp = loss_and_grads(s, c32.replace(**TRAIN_PLAIN), p32, batch)
+    bwd = s.build.launch_counts().get("ssd_scan_bwd", 0)
+    require(bwd == layers, f"train {cfg.name} f32 x {layers}: the kernel "
+            f"path launched ssd_scan_bwd {bwd} times, want {layers}")
+    gp = plain_grads(p32)
     err = rel(gk, gp)
     worst = max(err, key=err.get)
     require(err[worst] <= rtol and all(bool(g.abs().max() > 0)
@@ -2794,8 +2905,7 @@ def f32_grad_check(s, cfg, layers: int, rtol: float, batch) -> dict:
             f"train {cfg.name} f32 x {layers}: gradient of {worst} differs "
             f"by {err[worst]:.3g} (relative L2, limit {rtol})")
     del gk, p32
-    _, gq = loss_and_grads(s, c32.replace(**TRAIN_PLAIN), params(1e-7),
-                           batch)
+    gq = plain_grads(params(1e-7))
     floor = rel(gq, gp)
     res = {"layers": layers, "limit": rtol, "leaves": len(err),
            "worst_leaf": worst, "worst": err[worst],
@@ -2803,7 +2913,8 @@ def f32_grad_check(s, cfg, layers: int, rtol: float, batch) -> dict:
            "plain_perturbed_worst": max(floor.values()),
            "plain_perturbed_median": float(np.median(list(floor.values())))}
     log(f"train {cfg.name} f32 x {layers} layers: every one of {len(err)} "
-        f"leaves' gradients on the kernel path within relative L2 "
+        f"leaves' gradients on the kernel path ({bwd} ssd_scan_bwd) within "
+        f"relative L2 "
         f"{err[worst]:.3g} ({worst}; median {res['median']:.3g}) of the "
         f"plain path's, limit {rtol}; the plain path against itself with "
         f"the weights perturbed by 1e-7: worst "
@@ -3199,7 +3310,8 @@ DRYRUN_MULTI = ("qwen3-32b", "deepseek-moe-16b")
 # an f32 copy of it)
 DRYRUN_CPU_CHECK = (("qwen3-32b", "prefill_32k"), ("qwen1.5-0.5b", "train_4k"),
                     ("stablelm-1.6b", "decode_32k"),
-                    ("deepseek-moe-16b", "decode_32k"))
+                    ("deepseek-moe-16b", "decode_32k"),
+                    ("mamba2-370m", "train_4k"))
 
 
 def dryrun_cells(s) -> list:

@@ -26,16 +26,22 @@ G chunks, carrying the f32 state from group to group, with G from
 by every group, and one call counts as one ``ssd_scan`` launch.  f32
 keeps the CUDA-core kernel, which needs no scratch.  Times are in
 ``PERF.md``.
+
+``ssd_scan_with_grad`` carries the chunk scan's gradient: on CUDA tensors
+its backward is the hand-written f32 kernel of ``csrc/ssd_scan_bwd.cu``
+(:func:`ssd_scan_bwd`, one counted ``ssd_scan_bwd`` launch a call), on
+CPU tensors the plain version's autograd, recomputed.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-from .. import _build
+from .. import _build, _grad
 from .ref import ssd_scan_chunked_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
@@ -49,10 +55,19 @@ MAX_GRID = 65535        # grid y and z: pass A has G on y, pass C B * G on z
 # mamba2-370m serve prefill (B 4, nc 8, Q 256) takes in one group, below
 # twice that
 SCRATCH_BUDGET = 128 << 20
+# bytes of f32 scratch a backward call may take: above the 315 MB that the
+# mamba2-370m training step (B 16, nc 8, Q 256) takes in one group
+BWD_SCRATCH_BUDGET = 512 << 20
+_BWD_SIGNATURES = {"ssd_scan_bwd": [_P] * 14 + [_I] * 18 + [_P]}
+TILE = 64               # rows of the backward kernels' tiles
 
 
 def _lib() -> ctypes.CDLL:
     return _build.library("ssd_scan", _SIGNATURES)
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    return _build.library("ssd_scan_bwd", _BWD_SIGNATURES)
 
 
 def _check(x, b, c, dt, da) -> None:
@@ -139,6 +154,138 @@ def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                       *b.stride()[:3], *c.stride()[:3], G,
                       DTYPE_CODES[x.dtype])
     return (y, h) if return_state else y
+
+
+def bwd_scratch_plan(B: int, nc: int, Q: int, nh: int, hd: int, ns: int
+                     ) -> Tuple[int, int, int]:
+    """(G, scratch bytes, bounds bytes) of a backward call: the chunks a
+    group takes, the f32 scratch of one group -- (nh (2 ns hd + Q + 1) +
+    2 pairs 64^2) floats per (batch, chunk), pairs the 64 x 64 tile pairs
+    on or below a chunk's diagonal -- and the states entering every group
+    after the first.  G is the most chunks whose scratch fits
+    BWD_SCRATCH_BUDGET (at least one) and whose grids fit (G <= 65535)."""
+    nt = -(-Q // TILE)
+    per_chunk = 4 * B * (nh * (2 * ns * hd + Q + 1)
+                         + 2 * (nt * (nt + 1) // 2) * TILE * TILE)
+    G = max(1, min(nc, BWD_SCRATCH_BUDGET // per_chunk, MAX_GRID))
+    groups = -(-nc // G)
+    return G, G * per_chunk, (groups - 1) * 4 * B * nh * ns * hd
+
+
+def ssd_scan_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                 dt: torch.Tensor, da: torch.Tensor, dy: torch.Tensor,
+                 dh: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of the chunk scan (:func:`ssd_scan` with its final
+    state) at x, b, c, dt, da, given dy (y's shape and dtype) and the final
+    state's gradient dh ((B, nh, ns, hd) f32, or None): (dx, db, dc) in the
+    inputs' dtype, (ddt, dda) in f32, from the CUDA kernel, or from the
+    plain version's autograd for tensors on the CPU."""
+    _check(x, b, c, dt, da)
+    B, nc, Q, nh, hd = x.shape
+    ns = b.shape[-1]
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must be x's "
+                         f"shape and dtype")
+    if dh is not None and (tuple(dh.shape) != (B, nh, ns, hd)
+                           or dh.dtype != torch.float32):
+        raise ValueError(f"dh {tuple(dh.shape)} {dh.dtype} must be "
+                         f"{(B, nh, ns, hd)} float32")
+    if x.device.type == "cpu":
+        return _plain_grads((x, b, c, dt, da), (True,) * 5, dy, dh)
+    if B > MAX_GRID or nh > MAX_GRID:
+        raise ValueError(f"B = {B} and nh = {nh} must each be <= "
+                         f"{MAX_GRID} (grid)")
+    dy = dy.contiguous()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    db = torch.empty(b.shape, dtype=b.dtype, device=x.device)
+    dc = torch.empty(c.shape, dtype=c.dtype, device=x.device)
+    ddt = torch.empty(dt.shape, dtype=torch.float32, device=x.device)
+    dda = torch.empty(da.shape, dtype=torch.float32, device=x.device)
+    if x.numel() == 0 or b.numel() == 0:
+        return (dx.zero_(), db.zero_(), dc.zero_(), ddt.zero_(),
+                dda.zero_())
+    G, nbytes, bbytes = bwd_scratch_plan(B, nc, Q, nh, hd, ns)
+    scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
+    bounds = torch.empty(bbytes // 4, dtype=torch.float32,
+                         device=x.device) if bbytes else None
+    dcarry = dh.detach().clone().contiguous() if dh is not None else \
+        torch.zeros((B, nh, ns, hd), dtype=torch.float32, device=x.device)
+    ptrs = [_build.ptr(t) for t in (x, b, c, dt, da, dy, dx, db, dc, ddt,
+                                    dda, scratch)]
+    _build.launch(_bwd_lib(), "ssd_scan_bwd", x.device, *ptrs,
+                  _build.ptr(bounds) if bounds is not None else None,
+                  _build.ptr(dcarry), B, nc, Q, nh, hd, ns, *x.stride()[:4],
+                  *b.stride()[:3], *c.stride()[:3], G, DTYPE_CODES[x.dtype])
+    return dx, db, dc, ddt, dda
+
+
+def _plain_grads(inputs, wanted, dy, dh):
+    """The plain version's gradients by autograd, recomputed (None where
+    an input's gradient is not wanted)."""
+    return _grad.plain_backward(ssd_scan_chunked_ref, {}, inputs, wanted,
+                                (dy, dh))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def ssd_scan_bwd_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    dt: torch.Tensor, da: torch.Tensor, dy: torch.Tensor,
+                    dh: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan_bwd` as a PyTorch operator: under
+    ``FakeTensorMode`` (the dry run) its fake version gives the shapes
+    without launching."""
+    return ssd_scan_bwd(x, b, c, dt, da, dy, dh)
+
+
+@ssd_scan_bwd_op.register_fake
+def _(x, b, c, dt, da, dy, dh):
+    return tuple(torch.empty(t.shape, dtype=d, device=x.device)
+                 for t, d in ((x, x.dtype), (b, b.dtype), (c, c.dtype),
+                              (dt, torch.float32), (da, torch.float32)))
+
+
+class _SSDScanWithGrad(torch.autograd.Function):
+    """``forward(x, b, c, dt, da)`` -> (y, final state) in the forward
+    pass, autograd off inside it, only the five inputs saved; the backward
+    is :func:`ssd_scan_bwd`: the kernel on CUDA tensors, the plain
+    version's autograd, recomputed, on the CPU.  Fake tensors (the dry
+    run) take :func:`ssd_scan_bwd_op` instead, whose fake version stands
+    for the kernel on either device; real CPU tensors cannot, since
+    autograd is off below an operator."""
+
+    @staticmethod
+    def forward(ctx, forward: Callable, *inputs: torch.Tensor):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs)
+        return forward(*inputs)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        inputs = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[1:]
+        if (dy is None and dh is None) or not any(wanted):
+            return (None,) * 6
+        x = inputs[0]
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype)
+        bwd = ssd_scan_bwd_op if is_fake(x) else ssd_scan_bwd
+        grads = bwd(*inputs, dy, dh)
+        return (None, *(g if w else None for g, w in zip(grads, wanted)))
+
+
+def ssd_scan_with_grad(forward: Callable, x: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, dt: torch.Tensor, da: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``forward(x, b, c, dt, da)`` -> (y, final state), the chunk scan on
+    either path (the plain version or :func:`ssd_scan_op`), with the
+    gradient of :func:`ssd_scan_chunked_ref` when autograd is on and some
+    input requires a gradient; otherwise ``forward`` alone."""
+    inputs = (x, b, c, dt, da)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in inputs)):
+        return forward(*inputs)
+    return _SSDScanWithGrad.apply(forward, *inputs)
 
 
 @torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())

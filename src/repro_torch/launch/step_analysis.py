@@ -26,7 +26,10 @@ shards:
     the peak is an estimate: the most bytes that the storages of the
     arguments' local shards and of the local ops' outputs held at once
     (each storage counted once, from its first op until it is freed; no
-    allocator rounding, fragmentation or workspace).
+    allocator rounding, fragmentation or workspace), plus, while a call of
+    the SSD scan's backward kernel runs, the scratch its wrapper allocates
+    for the call (the operator's fake version allocates nothing that the
+    counter could see).
 
 DTensor's sharding propagation runs an (op, shapes, placements) it has not
 cached on global-shape fake tensors (``ShardingPropagator.
@@ -101,11 +104,30 @@ def ssd_scan_flops(x, b, c, dt, da, **_) -> int:
     return B * nc * nh * (2 * Q * Q * ns + 2 * Q * Q * hd + 4 * Q * ns * hd)
 
 
+def ssd_scan_bwd_flops(x, b, c, dt, da, *_, **__) -> int:
+    """The chunk scan's gradient: twice the forward's products (the
+    chunk states the backward kernel recomputes are not counted)."""
+    return 2 * ssd_scan_flops(x, b, c, dt, da)
+
+
+def ssd_scan_bwd_scratch(x, b, c, dt, da, *_, **__) -> int:
+    """Bytes that a call of the chunk scan's backward kernel takes beside
+    its inputs and outputs: the f32 scratch and the groups' entering
+    states of ``bwd_scratch_plan``, and the state's gradient carried from
+    group to group."""
+    from ..kernels.ssd_scan.ops import bwd_scratch_plan
+    B, nc, Q, nh, hd = x.shape
+    ns = b.shape[-1]
+    _, nbytes, bbytes = bwd_scratch_plan(B, nc, Q, nh, hd, ns)
+    return nbytes + bbytes + 4 * B * nh * ns * hd
+
+
 def _kernel_flops() -> Dict[Any, Any]:
     ops = torch.ops.repro_torch
     return {ops.flash_attention: flash_attention_flops,
             ops.chunked_attention: flash_attention_flops,
-            ops.ssd_scan: ssd_scan_flops}
+            ops.ssd_scan: ssd_scan_flops,
+            ops.ssd_scan_bwd: ssd_scan_bwd_flops}
 
 
 #: the methods of DTensor's ``ShardingPropagator`` whose ops the counter
@@ -140,6 +162,8 @@ class StepCounter(TorchDispatchMode):
         self.coll = {k: {"count": 0, "bytes": 0, "cross_node_bytes": 0}
                      for k in KINDS}
         self._kernels = _kernel_flops()
+        self._scratch = {torch.ops.repro_torch.ssd_scan_bwd:
+                         ssd_scan_bwd_scratch}
         self.live_bytes = 0
         self.peak_bytes = 0
         self._storages = WeakIdKeyDictionary()
@@ -203,12 +227,15 @@ class StepCounter(TorchDispatchMode):
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
         for t in outs:
             self._hold(t)
+        packet = func._overloadpacket
+        if packet in self._scratch:
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes
+                                  + self._scratch[packet](*args, **kwargs))
         if outs and not func.is_view:
             ins = [t for t in tree_leaves((args, kwargs))
                    if isinstance(t, torch.Tensor)]
             self.bytes_accessed += sum(t.numel() * t.element_size()
                                        for t in ins + outs)
-        packet = func._overloadpacket
         n = 0
         if packet in flop_registry:
             n = flop_registry[packet](*args, **kwargs, out_val=out)

@@ -11,12 +11,16 @@ Two chunk-scan paths, selected by ``cfg.ssm_impl`` as ``attn_impl``
 selects the attention:
 
   "cuda"   the hand-written SSD chunk-scan kernel (``kernels.ssd_scan``,
-           with ``return_state``); on CPU tensors its plain version; when
-           a gradient is needed, the backward pass recomputes the plain
-           version (``kernels/_grad.py``)
+           with ``return_state``); on CPU tensors its plain version
   "torch"  the kernel's plain version (``kernels/ssd_scan/ref.py``),
            which computes the JAX package's ``chunk_step`` loop
            (``ssm.py:110-137``) in plain PyTorch
+
+When a gradient is needed, both go through
+``kernels.ssd_scan.ops.ssd_scan_with_grad``: the forward pass runs with
+autograd off and saves only the scan's inputs, and the backward pass is
+the hand-written f32 backward kernel on CUDA tensors (the plain version's
+autograd, recomputed, on CPU tensors).
 
 The JAX model runs only the second (its Pallas kernel is tested but never
 called by the model).  The gated head norm goes through the RMSNorm op
@@ -36,7 +40,6 @@ from torch.distributed.tensor import Replicate
 
 from ..distributed.sharding import (batch_placements, is_dtensor,
                                     local_run, placements_of, shard)
-from ..kernels import _grad
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import ssd_scan_chunked_ref
 from .config import ModelConfig
@@ -109,13 +112,12 @@ def ssd_chunk_scan(cfg: ModelConfig, x, b, c, dt, da
                for t in (x, b, c, dt, da)]
         return local_run(lambda *a: ssd_chunk_scan(cfg, *a),
                          (x, b, c, dt, da), pls, (pls[0], pls[0]), mesh)
-    if cfg.ssm_impl == "cuda":
-        return _grad.apply(ssd_ops.ssd_scan_op, ssd_scan_chunked_ref,
-                           x, b, c, dt, da)
-    if cfg.ssm_impl == "torch":
-        return ssd_scan_chunked_ref(x, b, c, dt, da)
-    raise ValueError(f"ssm_impl must be 'cuda' or 'torch', got "
-                     f"{cfg.ssm_impl!r}")
+    forward = {"cuda": ssd_ops.ssd_scan_op,
+               "torch": ssd_scan_chunked_ref}.get(cfg.ssm_impl)
+    if forward is None:
+        raise ValueError(f"ssm_impl must be 'cuda' or 'torch', got "
+                         f"{cfg.ssm_impl!r}")
+    return ssd_ops.ssd_scan_with_grad(forward, x, b, c, dt, da)
 
 
 def ssd_apply(p: Params, cfg: ModelConfig, x_in: torch.Tensor,

@@ -657,3 +657,207 @@ def test_ssm_models_launch_and_agree_with_the_cpu(dev, arch):
     assert counts["rmsnorm"] == cfg.n_layers * 8
     assert counts.get("flash_attention", 0) == (cfg.n_layers if cfg.hybrid
                                                 else 0)
+
+
+# the backward kernel of the SSD chunk scan (csrc/ssd_scan_bwd.cu) against
+# the plain version's autograd on the card: the largest error of each
+# gradient as a share of its largest value.  dx, db and dc carry the
+# inputs' dtype: bf16 reads 0.0007-0.0032 (a bf16 ulp is 0.0039 of a
+# value), so 1e-2; f32, and ddt and dda (always f32), read under 6e-6, so
+# 5 times the f32 tolerance (H100 80GB HBM3, 700 W; PERF.md)
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+def _ssd_grads(tx, dy, dh, kernel: bool):
+    if kernel:
+        return ssd_ops.ssd_scan_bwd(*tx, dy, dh)
+    return ssd_ops._plain_grads(tx, (True,) * 5, dy, dh)
+
+
+def _ssd_grad_err(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+def _ssd_grads_close(got, want, what):
+    for name, g, w in zip(("dx", "db", "dc", "ddt", "dda"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), f"{what}: {name} not finite"
+        tol = SSD_BWD_TOL[g.dtype]
+        err = _ssd_grad_err(g, w)
+        assert err <= tol, f"{what}: {name} off by {err:.3g} > {tol}"
+
+
+def _ssd_dy_dh(tx, dh: bool, seed: int):
+    x = tx[0]
+    B, nh, hd, ns = x.shape[0], x.shape[3], x.shape[4], tx[1].shape[-1]
+    dy = _randn(tuple(x.shape), seed, x.dtype, x.device)
+    return dy, (_randn((B, nh, ns, hd), seed + 1, torch.float32, x.device)
+                if dh else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [False, True])
+@pytest.mark.parametrize("B,nc,Q,nh,hd,ns", [
+    (16, 8, 256, 32, 64, 128),   # the mamba2-370m training step
+    (2, 8, 256, 50, 64, 16),     # hymba-1.5b's SSD heads
+    (2, 3, 7, 3, 16, 16), (1, 2, 100, 3, 48, 8), (2, 5, 1, 3, 64, 128),
+    (1, 1, 130, 2, 128, 128)])
+def test_ssd_scan_bwd(dev, B, nc, Q, nh, hd, ns, dh, dtype):
+    tx = _ssd_inputs(B, nc, Q, nh, hd, ns, dtype, dev, Q + nc + ns)
+    dy, dhv = _ssd_dy_dh(tx, dh, 7 + Q)
+    _ssd_grads_close(_ssd_grads(tx, dy, dhv, True),
+                     _ssd_grads(tx, dy, dhv, False),
+                     f"{(B, nc, Q, nh, hd, ns)} {dtype} dh={dh}")
+
+
+def test_ssd_scan_bwd_reads_strided_inputs(dev):
+    """x, b and c as column slices of one tensor, as the model passes
+    them."""
+    B, nc, Q, nh, hd, ns = 2, 3, 100, 4, 64, 128
+    xbc = _randn((B, nc * Q, nh * hd + 2 * ns), 17, torch.bfloat16, dev)
+    x = xbc[..., :nh * hd].reshape(B, nc, Q, nh, hd)
+    b = xbc[..., nh * hd:nh * hd + ns].reshape(B, nc, Q, ns)
+    c = xbc[..., nh * hd + ns:].reshape(B, nc, Q, ns)
+    _, _, _, dt, da = _ssd_inputs(B, nc, Q, nh, 8, 8, torch.float32, dev, 18)
+    dy, dh = _ssd_dy_dh((x, b, c, dt, da), True, 19)
+    got = ssd_ops.ssd_scan_bwd(x, b, c, dt, da, dy, dh)
+    want = _ssd_grads((x.contiguous(), b.contiguous(), c.contiguous(), dt,
+                       da), dy, dh, False)
+    _ssd_grads_close(got, want, "strided")
+
+
+def test_ssd_scan_bwd_prime_length_runs_in_groups(dev):
+    """Q 1 and nc 2,003 (a prime length): the passes run over groups of
+    chunks with bounded scratch, the states entering each group kept by a
+    first walk, the state's gradient carried from group to group."""
+    shape = (2, 2003, 1, 4, 64, 128)
+    tx = _ssd_inputs(*shape, torch.bfloat16, dev, 94)
+    assert 1 < ssd_ops.bwd_scratch_plan(*shape)[0] < 2003
+    dy, dh = _ssd_dy_dh(tx, True, 95)
+    _ssd_grads_close(_ssd_grads(tx, dy, dh, True),
+                     _ssd_grads(tx, dy, dh, False), "prime length")
+
+
+def test_ssd_scan_bwd_groups_and_runs_are_bit_identical(dev, monkeypatch):
+    """A group boundary cuts only the walks over the chunks, which cross
+    it in f32 as they cross a chunk boundary; and no block adds into
+    another's output: groups of 3 or of 5, and a second run, give one
+    group's gradients bit for bit."""
+    shape = (2, 16, 64, 3, 64, 128)
+    tx = _ssd_inputs(*shape, torch.bfloat16, dev, 96)
+    dy, dh = _ssd_dy_dh(tx, True, 97)
+    assert ssd_ops.bwd_scratch_plan(*shape)[0] == 16
+    want = ssd_ops.ssd_scan_bwd(*tx, dy, dh)
+    again = ssd_ops.ssd_scan_bwd(*tx, dy, dh)
+    assert all(torch.equal(a, b) for a, b in zip(again, want))
+    per_chunk = ssd_ops.bwd_scratch_plan(*shape)[1] // 16
+    for group in (3, 5):
+        monkeypatch.setattr(ssd_ops, "BWD_SCRATCH_BUDGET", group * per_chunk)
+        assert ssd_ops.bwd_scratch_plan(*shape)[0] == group
+        got = ssd_ops.ssd_scan_bwd(*tx, dy, dh)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_ssd_scan_bwd_overflowing_decay_stays_finite(dev):
+    """exp(cs_q - cs_p) is inf above the diagonal at mamba2's strongest
+    decay over a 256-token chunk: the gradient there is 0, never NaN."""
+    x, b, c, dt, da = _ssd_inputs(1, 2, 256, 2, 64, 128, torch.float32, dev,
+                                  98)
+    tx = (x, b, c, torch.full_like(dt, 0.1), torch.full_like(da, -3.2))
+    dy, dh = _ssd_dy_dh(tx, True, 99)
+    _ssd_grads_close(_ssd_grads(tx, dy, dh, True),
+                     _ssd_grads(tx, dy, dh, False), "overflowing decay")
+
+
+@pytest.mark.parametrize("impl", ["torch", "cuda"])
+def test_ssd_scan_with_grad_launches_the_backward_kernel(dev, impl):
+    """Through the model's Function on either forward path: one
+    ssd_scan_bwd launch a backward call, the plain forward unchanged and
+    launching nothing, the gradients the kernel's."""
+    tx = _ssd_inputs(2, 3, 64, 4, 64, 128, torch.bfloat16, dev, 100)
+    forward = {"torch": ssd_scan_chunked_ref, "cuda": ssd_ops.ssd_scan_op}
+    xs = [t.detach().clone().requires_grad_(True) for t in tx]
+    _build.reset_launches()
+    y, h = ssd_ops.ssd_scan_with_grad(forward[impl], *xs)
+    assert _build.launch_counts() == ({} if impl == "torch"
+                                      else {"ssd_scan": 1})
+    dy, _ = _ssd_dy_dh(tx, False, 101)
+    got = torch.autograd.grad(y, xs, dy)
+    counts = _build.launch_counts()
+    assert counts.get("ssd_scan_bwd") == 1 and counts.get("ssd_scan", 0) \
+        == (0 if impl == "torch" else 1)
+    want = ssd_ops.ssd_scan_bwd(*tx, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if impl == "torch":
+        with torch.no_grad():
+            y_plain, _ = ssd_scan_chunked_ref(*tx)
+        assert torch.equal(y.detach(), y_plain)
+
+
+def test_train_step_with_the_backward_kernel_meets_the_cells_limits(
+        dev, monkeypatch):
+    """mamba2-370m-plainssd (48 layers, full width, bf16) at 4 x 2,048
+    tokens: three AdamW steps with the backward kernel against the same
+    steps with the plain version's autograd in its place, held to the
+    training cell's own limits (portbench/workloads) by its own
+    comparison (portbench/reference/compare.py)."""
+    from portbench import cells, weights
+    from portbench.reference import compare
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cell = cells.load_cell("mamba2-370m-plainssd.train")
+    model, opt = cell["model"], cell["mix"]["optimizer"]
+    cfg = get_config(model["arch"])
+    cfg = cfg.replace(**{k: v for k, v in model.items()
+                         if hasattr(cfg, k) and k != "name"})
+    assert cfg.ssm_impl == "torch" and cfg.n_layers == 48
+    rows = np.random.RandomState(5).randint(
+        0, model["vocab_size"], size=(3, 4, 2049)).astype(np.int32)
+
+    def steps():
+        state = adamw_init(weights.make_params(model, 11, dev,
+                                               torch.float32))
+        step = make_train_step(cfg, AdamWConfig(**opt), device=dev)
+        losses, first = [], None
+        for i in range(3):
+            state, m = step(state, {"tokens": rows[i, :, :-1],
+                                    "labels": rows[i, :, 1:]})
+            losses.append(float(m["loss"]))
+            if i == 0:
+                clip = min(opt["grad_clip"]
+                           / max(float(m["grad_norm"]), 1e-12), 1.0)
+                first = {k: (v / ((1 - opt["b1"]) * clip)).float().cpu()
+                         for k, v in _flat(state["mu"]).items()}
+        start = _flat(weights.make_params(model, 11, dev, torch.float32))
+        change = {k: float((v - start[k]).norm())
+                  for k, v in _flat(state["master"]).items()}
+        return losses, first, change
+
+    _build.reset_launches()
+    k_losses, k_grads, k_change = steps()
+    assert _build.launch_counts().get("ssd_scan_bwd") == 3 * cfg.n_layers
+    monkeypatch.setattr(ssd_ops, "ssd_scan_bwd", lambda *a: ssd_ops
+                        ._plain_grads(a[:5], (True,) * 5, a[5], a[6]))
+    _build.reset_launches()
+    p_losses, p_grads, p_change = steps()
+    assert "ssd_scan_bwd" not in _build.launch_counts()
+    ref = {"losses": p_losses, "grads": p_grads,
+           "grad_norms": {k: float(v.norm()) for k, v in p_grads.items()},
+           "change_norms": p_change}
+    gaps = compare.training_gaps(
+        k_losses, {k: float(v.norm()) for k, v in k_grads.items()},
+        k_change, ref, k_grads)
+    limits = cell["limits"]
+    for name in ("head_grad_err", "grad_gap_median", "change_gap"):
+        assert gaps[name] <= limits[name], (name, gaps)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out

@@ -22,7 +22,8 @@ from repro.models import ssm as JS
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import (ssd_scan_chunked_ref,
+from repro_torch.kernels.ssd_scan.ref import (ssd_scan_bwd_passes_ref,
+                                              ssd_scan_chunked_ref,
                                               ssd_scan_passes_ref,
                                               ssd_scan_token_ref)
 from repro_torch.models import ssm as TS
@@ -246,6 +247,153 @@ def test_scratch_plan_fits_the_grid_and_takes_a_group(monkeypatch):
         monkeypatch.setattr(ssd_ops, "SCRATCH_BUDGET", budget)
         assert ssd_ops.scratch_plan(2, 16, 64, 3, 64, 128) == \
             (want, want * per_chunk)
+
+
+# (B, nc, Q, nh, hd, ns, group, da): the backward passes' cases, f64
+BWD_CASES = [(1, 1, 1, 3, 64, 16, None, "mild"),
+             (2, 8, 1, 3, 64, 128, 3, "mild"),
+             (1, 3, 7, 3, 64, 16, None, "mild"),
+             (1, 5, 7, 50, 64, 16, 2, "mild"),
+             (1, 2, 100, 3, 64, 128, 1, "mild"),
+             (1, 2, 100, 50, 64, 16, None, "mild"),
+             (1, 1, 256, 3, 64, 128, None, "mild"),
+             (1, 2, 256, 3, 64, 16, None, "overflow"),
+             (1, 4, 7, 3, 64, 16, 3, "overflow")]
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hd,ns,group,decay", BWD_CASES)
+def test_bwd_passes_are_autograds_gradient(B, nc, Q, nh, hd, ns, group,
+                                           decay):
+    """The backward kernels' passes (the entering states recomputed, the
+    state gradients' reverse pass, the per-chunk pass), in f64, give
+    autograd's gradient of the chunked function for every input, with and
+    without a final state's gradient, also over groups of chunks.  At
+    mamba2's strongest decay (da -3.2 over up to 256 rows) the decay above
+    the diagonal is inf, and the gradient stays finite and is 0 there: a
+    dy on the first row of the last chunk alone reaches no later x."""
+    _, tx = _inputs(B, nc, Q, nh, hd, ns, "float32", seed=Q + nc + nh)
+    x, b, c, dt, da = (t.double() for t in tx)
+    if decay == "overflow":
+        dt, da = torch.full_like(dt, 0.1), torch.full_like(da, -3.2)
+        cs = torch.cumsum(da[0, 0, :, 0], 0)
+        assert Q < 256 or torch.isinf(torch.exp(cs[0] - cs[-1]).float())
+    gen = torch.Generator().manual_seed(Q + 1)
+    dy = torch.randn(x.shape, generator=gen, dtype=torch.float64)
+    dh = torch.randn((B, nh, ns, hd), generator=gen, dtype=torch.float64)
+    for d_state in (None, dh):
+        xs = [t.clone().requires_grad_(True) for t in (x, b, c, dt, da)]
+        y, h = ssd_scan_chunked_ref(*xs)
+        outs, gs = ([y, h], [dy, d_state]) if d_state is not None \
+            else ([y], [dy])
+        want = torch.autograd.grad(outs, xs, gs)
+        got = ssd_scan_bwd_passes_ref(x, b, c, dt, da, dy, d_state,
+                                      group=group)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float64 and bool(torch.isfinite(g).all())
+            # inputs are O(1): an exactly-zero gradient reads f64 noise
+            assert float((g - w).abs().max()) <= 1e-9 * max(
+                float(w.abs().max()), 1.0)
+    if decay == "overflow":
+        one = torch.zeros_like(dy)
+        one[:, -1, 0] = dy[:, -1, 0]
+        dx = ssd_scan_bwd_passes_ref(x, b, c, dt, da, one, group=group)[0]
+        assert bool(torch.isfinite(dx).all())
+        assert not bool(dx[:, -1, 1:].any()) and bool(dx[:, -1, 0].any())
+
+
+def test_bwd_passes_keep_the_inputs_dtypes():
+    """In f32 and bf16: dx, db and dc in the inputs' dtype, ddt and dda in
+    f32, within the f32 tolerance of autograd on the same f32 values."""
+    for dtype in ("float32", "bfloat16"):
+        _, tx = _inputs(1, 3, 16, 3, 16, 8, dtype, seed=4)
+        dy = torch.randn(tx[0].shape, generator=torch.Generator()
+                         .manual_seed(3)).to(tx[0].dtype)
+        got = ssd_scan_bwd_passes_ref(*tx, dy, group=2)
+        xs = [t.float().requires_grad_(True) for t in tx]
+        want = torch.autograd.grad(ssd_scan_chunked_ref(*xs)[0], xs,
+                                   dy.float())
+        for g, w, t in zip(got, want, tx):
+            assert g.dtype == (t.dtype if g is not got[3] and g is not got[4]
+                               else torch.float32)
+            tol = TOL[dtype] * float(w.abs().max())
+            assert float((g.float() - w).abs().max()) <= tol
+
+
+def test_with_grad_on_the_cpu_is_plain_autograd_bit_for_bit():
+    """The model's Function on CPU tensors: the forward is the plain
+    version's, and the backward the plain version's autograd, recomputed:
+    gradients equal bit for bit, with and without the final state's
+    gradient, for the inputs that require one, and no launch."""
+    _, tx = _inputs(2, 3, 7, 3, 8, 4, "float32", seed=21)
+    gen = torch.Generator().manual_seed(22)
+    dy = torch.randn(tx[0].shape, generator=gen)
+    dh = torch.randn((2, 3, 4, 8), generator=gen)
+    _build.reset_launches()
+    for wanted in ((True,) * 5, (True, False, True, False, True)):
+        for with_h in (False, True):
+            xs = [t.clone().requires_grad_(w) for t, w in zip(tx, wanted)]
+            ys = [t.clone().requires_grad_(w) for t, w in zip(tx, wanted)]
+            y, h = ssd_ops.ssd_scan_with_grad(ssd_scan_chunked_ref, *xs)
+            y2, h2 = ssd_scan_chunked_ref(*ys)
+            assert torch.equal(y, y2) and torch.equal(h, h2)
+            outs = ([y, h], [dy, dh]) if with_h else ([y], [dy])
+            outs2 = ([y2, h2], [dy, dh]) if with_h else ([y2], [dy])
+            got = torch.autograd.grad(outs[0], [t for t in xs
+                                                if t.requires_grad], outs[1])
+            want = torch.autograd.grad(outs2[0], [t for t in ys
+                                                  if t.requires_grad],
+                                       outs2[1])
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _build.launch_counts() == {}
+    with torch.no_grad():
+        y, h = ssd_ops.ssd_scan_with_grad(ssd_scan_chunked_ref, *tx)
+    assert y.grad_fn is None
+    got = ssd_ops.ssd_scan_bwd(*tx, dy, dh)
+    xs = [t.clone().requires_grad_(True) for t in tx]
+    want = torch.autograd.grad(list(ssd_scan_chunked_ref(*xs)), xs, [dy, dh])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("forward", ["torch", "cuda"])
+def test_the_dry_run_counts_the_backward_kernel_on_cpu_fakes(forward):
+    """Fake CPU tensors (the dry run's check of its cuda cells) take the
+    backward operator, as fake CUDA tensors do: one call, twice the
+    forward's FLOPs and no op of the plain recompute, and the kernel's
+    scratch in the peak."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.step_analysis import (StepCounter,
+                                                  ssd_scan_bwd_scratch,
+                                                  ssd_scan_flops)
+    B, nc, Q, nh, hd, ns = 2, 4, 64, 3, 16, 8
+    fwd = {"torch": ssd_scan_chunked_ref, "cuda": ssd_ops.ssd_scan_op}
+    with FakeTensorMode():
+        tx = [torch.empty(s) for s in ((B, nc, Q, nh, hd), (B, nc, Q, ns),
+                                       (B, nc, Q, ns), (B, nc, Q, nh),
+                                       (B, nc, Q, nh))]
+        xs = [t.clone().requires_grad_(True) for t in tx]
+        y, _ = ssd_ops.ssd_scan_with_grad(fwd[forward], *xs)
+        dy = torch.empty_like(y)
+        counter = StepCounter()
+        with counter:
+            grads = torch.autograd.grad(y, xs, dy)
+    assert [g.shape for g in grads] == [t.shape for t in tx]
+    assert counter.flops_by_op == {"repro_torch.ssd_scan_bwd":
+                                   2 * ssd_scan_flops(*tx)}
+    assert counter.peak_bytes >= ssd_scan_bwd_scratch(*tx) > 0
+
+
+def test_bwd_scratch_plan():
+    """The training step's shape (B 16, nc 8, Q 256) runs in one group;
+    a prime length (Q 1, nc 2,003) in groups whose scratch fits the
+    budget, the entering states of all groups but the first kept apart;
+    a chunk too large for the budget still takes a group of one."""
+    G, nbytes, bbytes = ssd_ops.bwd_scratch_plan(16, 8, 256, 32, 64, 128)
+    assert (G, bbytes) == (8, 0) and nbytes <= ssd_ops.BWD_SCRATCH_BUDGET
+    G, nbytes, bbytes = ssd_ops.bwd_scratch_plan(2, 2003, 1, 32, 64, 128)
+    groups = -(-2003 // G)
+    assert 1 < G < 2003 and nbytes <= ssd_ops.BWD_SCRATCH_BUDGET
+    assert bbytes == (groups - 1) * 4 * 2 * 32 * 128 * 64
+    assert ssd_ops.bwd_scratch_plan(16, 3, 4096, 32, 128, 128)[0] == 1
 
 
 def _bf16_once(t):
